@@ -48,15 +48,14 @@ class SampleRNNConfig:
                                     # recompute for activation memory on
                                     # long TBPTT chunks
     pallas_train_rnn: bool | str = "auto"
-                                    # Pallas GRU sequence kernel (custom
-                                    # VJP) for tier scans in training;
-                                    # requires gru + dim % 128 == 0 and
-                                    # the tier's backward residuals
-                                    # fitting VMEM. "auto" = on when
-                                    # running on TPU (measured ~3.5%
-                                    # step win); True = on wherever it
-                                    # fits (warns when a tier falls back
-                                    # to the XLA scan); False = off
+                                    # GRU sequence kernel (K4, its own
+                                    # backward) for tier scans in
+                                    # training. "auto" = on for CUDA
+                                    # tensors; True = also the kernel's
+                                    # plain versions on CPU tensors; on
+                                    # CUDA a tier it cannot take raises
+                                    # (models/samplernn.py); False = the
+                                    # autograd scan everywhere
     weight_norm: bool = False       # weight_norm on projections (C20)
     codec: str = "mulaw"            # "mulaw" | "linear" quantizer (C1)
     compute_dtype: str = "bfloat16"  # matmul dtype; state/softmax stay f32

@@ -20,13 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
+from samplernn_pase_tpu_torch.tree import tree_map
 
 
 def _leaf_to_torch(device):
@@ -38,14 +32,14 @@ def _leaf_to_torch(device):
 def params_from_jax(tree, device="cpu") -> dict:
     """JAX parameter pytree ``{"tiers": [...], "mlp": {...}}`` of numpy
     arrays -> the port's dict of tensors on ``device``, same structure."""
-    return _map(tree, _leaf_to_torch(device))
+    return tree_map(_leaf_to_torch(device), tree)
 
 
 def state_from_jax(states, device="cpu") -> tuple:
     """Tuple of per-tier JAX states -> tuple of tensors, same layout."""
-    return tuple(_map(list(states), _leaf_to_torch(device)))
+    return tuple(tree_map(_leaf_to_torch(device), list(states)))
 
 
 def to_numpy(tree):
     """The inverse: a tree of tensors -> the same tree of numpy arrays."""
-    return _map(tree, lambda t: t.detach().cpu().numpy())
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

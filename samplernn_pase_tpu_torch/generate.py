@@ -34,13 +34,14 @@ import numpy as np
 import torch
 
 from samplernn_pase_tpu_torch.config import SampleRNNConfig
+from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import frame_rnn, sample_mlp, samplernn
-from samplernn_pase_tpu_torch.models.samplernn import _to
 from samplernn_pase_tpu_torch.ops.kernels import megagen
 from samplernn_pase_tpu_torch.ops.kernels.noise import gumbel_block
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 from samplernn_pase_tpu_torch.ops.mulaw import (
     levels_to_float, linear_dequantize, mu_law_decode, quantize_zero)
+from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
 
 _CONDITIONED = ("conditioned generation (cond, speakers, lane_keys, "
                 "cond_pos0) comes with ROADMAP.md B4")
@@ -49,16 +50,6 @@ _CONDITIONED = ("conditioned generation (cond, speakers, lane_keys, "
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n."""
     return 1 << (max(int(n), 1) - 1).bit_length()
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device``, else CUDA, which
-    must be present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain versions on the CPU")
-    return dev
 
 
 def kernel_scope_error(cfg: SampleRNNConfig) -> str | None:
@@ -148,7 +139,7 @@ def prepare_weights(params, cfg: SampleRNNConfig, device=None) -> dict:
     why = kernel_scope_error(cfg)
     if why:
         raise NotImplementedError(why)
-    params = _to(params, resolve_device(device))
+    params = tree_map(lambda t: t.to(resolve_device(device)), params)
     return megagen.prepare(params["tiers"], params["mlp"], cfg.compute_dtype)
 
 
@@ -167,14 +158,6 @@ def _generate_kernels(weights, cfg, length, temperature, seed, hist,
         weights, hist, tuple(initial_states), temperature or 0.0, n_top,
         cfg.q_levels, seed=seed, pos0=noise_pos0)
     return levels, states, levels[:, -cfg.lookback:]
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
 
 
 def _route(use_kernels, device, cfg):
@@ -214,7 +197,7 @@ def generate_levels(params, cfg: SampleRNNConfig, n_seqs: int, length: int,
                 or cond_pos0 != 0):
         raise NotImplementedError(_CONDITIONED)
     dev = resolve_device(device)
-    params = _to(params, dev)
+    params = tree_map(lambda t: t.to(dev), params)
     if not temperature:
         temperature = None
     lookback = cfg.lookback
@@ -257,7 +240,7 @@ def rescore(params, cfg: SampleRNNConfig, levels, temperature=None,
     if t % cfg.lookback:
         raise ValueError(f"T={t} is not a multiple of {cfg.lookback}")
     dev = levels.device
-    params = _to(params, dev)
+    params = tree_map(lambda t: t.to(dev), params)
     if initial_states is None:
         initial_states = samplernn.initial_state(params, cfg, b)
     if hist is None:
@@ -308,7 +291,7 @@ def make_generator(cfg: SampleRNNConfig, n_seqs: int, length: int,
     def fn(params, seed=0):
         weights = None
         if kernels:
-            key = tuple((id(t), t._version) for t in _leaves(params))
+            key = tuple((id(t), t._version) for t in tree_leaves(params))
             if cache.get("key") != key:
                 cache.clear()
                 cache.update(key=key, params=params,

@@ -1,6 +1,6 @@
 """Frame-level RNN tier with learned upsampling, as
-``samplernn_pase_tpu.models.frame_rnn`` (the decode-step functions; the
-teacher-forced ``tier_apply`` belongs to the training slice).
+``samplernn_pase_tpu.models.frame_rnn``: the teacher-forced tier pass
+(``tier_apply``) and the decode step (``tier_step``).
 
 The upsampling is the matmul form of ConvTranspose1d(kernel=f, stride=f):
 row j of a tier's output is ``h @ w_up[:, j*dim:(j+1)*dim] + b_up[j]``.
@@ -13,6 +13,7 @@ import torch
 from samplernn_pase_tpu_torch.models import rnn_cells
 from samplernn_pase_tpu_torch.ops import init as winit
 from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
+from samplernn_pase_tpu_torch.ops.kernels.rnn_train import gru_sequence
 from samplernn_pase_tpu_torch.ops.matmul import matmul_dt, matmul_f32, torch_dtype
 
 
@@ -65,6 +66,57 @@ def tier_input(params, frames, upper_cond, ext_cond, compute_dtype):
     if ext_cond is not None:
         x = x + matmul_dt(ext_cond, params["w_cond"], dt)
     return x
+
+
+def tier_rnn(params, x, state, rnn_type: str, compute_dtype,
+             use_kernel: bool = False):
+    """Run the n_rnn-layer recurrent stack over the frame axis.
+
+    x [B, N, dim]; state [n_rnn, ...] as built by tier_initial_state.
+    Returns (h_seq [B, N, dim], new_state).  ``use_kernel`` runs each GRU
+    layer through ``gru_sequence`` (the whole-sequence kernel and its
+    backward kernel, or their plain versions on CPU tensors); otherwise
+    the layer is ``precompute_inputs`` + the autograd ``rnn_scan``."""
+    h_seq = x
+    new_states = []
+    for i, layer in enumerate(params["rnn"]):
+        if use_kernel:
+            if rnn_type != "gru":
+                raise NotImplementedError(
+                    "the training sequence kernel takes GRU layers; LSTM "
+                    "comes with ROADMAP.md B6")
+            hs, final = gru_sequence(
+                h_seq.transpose(0, 1), state[i], layer["w_ih"],
+                layer["b_ih"], layer["w_hh"], layer["b_hh"],
+                torch_dtype(compute_dtype))
+            h_seq = hs.transpose(0, 1)
+        else:
+            x_gates = rnn_cells.precompute_inputs(layer, h_seq, compute_dtype)
+            h_seq, final = rnn_cells.rnn_scan(layer, state[i], x_gates,
+                                              rnn_type, compute_dtype)
+        new_states.append(final)
+    return h_seq, torch.stack(new_states)
+
+
+def tier_upsample(params, h_seq, frame_size: int, compute_dtype):
+    """h_seq [B, N, dim] -> conditioning [B, N*frame_size, dim] in compute
+    dtype (the largest activation of the model; every consumer feeds a
+    compute-dtype product)."""
+    dt = torch_dtype(compute_dtype)
+    b, n, dim = h_seq.shape
+    up = matmul_dt(h_seq, wnorm.resolve(params["w_up"]), dt)
+    up = up.reshape(b, n, frame_size, dim) + params["b_up"].to(dt)
+    return up.reshape(b, n * frame_size, dim)
+
+
+def tier_apply(params, frames, upper_cond, ext_cond, state, *,
+               frame_size: int, rnn_type: str, compute_dtype,
+               use_kernel: bool = False):
+    """Full teacher-forced tier pass.  Returns (cond_below, new_state)."""
+    x = tier_input(params, frames, upper_cond, ext_cond, compute_dtype)
+    h_seq, new_state = tier_rnn(params, x, state, rnn_type, compute_dtype,
+                                use_kernel)
+    return tier_upsample(params, h_seq, frame_size, compute_dtype), new_state
 
 
 def tier_step(params, frame, upper_cond_vec, ext_cond_vec, state, *,

@@ -8,7 +8,8 @@ GRU gates are r, z, n in the fused weight (the cuDNN order):
     h' = (1 - z) * n + z * h
 LSTM gates are i, f, g, o: c' = f*c + i*g; h' = o * tanh(c').
 Products run in ``compute_dtype`` with float32 accumulation; gate math and
-state stay float32.
+state stay float32.  ``rnn_scan`` is the plain training scan (the
+reference's ``lax.scan``), the route taken without the sequence kernel.
 """
 
 from __future__ import annotations
@@ -58,6 +59,21 @@ def lstm_step(params, hc, x_gates, compute_dtype) -> torch.Tensor:
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return torch.stack([h_new, c_new])
+
+
+def rnn_scan(params, state, x_gates_seq, rnn_type: str,
+             compute_dtype) -> tuple:
+    """Run one RNN layer over time, differentiated by autograd.
+
+    state [B, H] (gru) or [2, B, H] (lstm); x_gates_seq [B, N, gH] f32.
+    Returns (h_seq [B, N, H], final_state)."""
+    step = gru_step if rnn_type == "gru" else lstm_step
+    carry = state
+    outs = []
+    for t in range(x_gates_seq.shape[1]):
+        carry = step(params, carry, x_gates_seq[:, t], compute_dtype)
+        outs.append(carry if rnn_type == "gru" else carry[0])
+    return torch.stack(outs, dim=1), carry
 
 
 def zero_state(batch: int, hidden: int, n_layers: int, rnn_type: str,

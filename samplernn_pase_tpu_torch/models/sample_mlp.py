@@ -1,6 +1,5 @@
-"""Sample-level MLP, decode-step form, as
-``samplernn_pase_tpu.models.sample_mlp`` (``mlp_apply``, the
-teacher-forced convolution form, belongs to the training slice).
+"""Sample-level MLP, as ``samplernn_pase_tpu.models.sample_mlp``: the
+teacher-forced form (``mlp_apply``) and the decode step (``mlp_step``).
 
 It embeds the last ``frame_size`` levels, adds the bottom tier's
 conditioning row onto the first hidden layer, runs two ReLU layers and
@@ -13,7 +12,8 @@ import torch
 
 from samplernn_pase_tpu_torch.ops import init as winit
 from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
-from samplernn_pase_tpu_torch.ops.matmul import matmul_f32
+from samplernn_pase_tpu_torch.ops.matmul import (
+    matmul_dt, matmul_f32, torch_dtype)
 
 
 def init_sample_mlp(gen: torch.Generator, frame_size: int, q_levels: int,
@@ -44,6 +44,29 @@ def _head(params, x, cond, compute_dtype) -> torch.Tensor:
     h = torch.relu(matmul_f32(h, wnorm.resolve(params["w_h"]), compute_dtype)
                    + params["b_h"])
     return matmul_f32(h, wnorm.resolve(params["w_out"]), compute_dtype) \
+        + params["b_out"]
+
+
+def mlp_apply(params, samples, cond, frame_size: int, compute_dtype):
+    """Teacher-forced logits for every position.
+
+    samples [B, T + frame_size - 1] int levels at positions [t - f, t) for
+    every target t; cond [B, T, hidden] bottom-tier conditioning.  Returns
+    logits [B, T, q_levels] float32.  The embedding is a one-hot product
+    and the window one valid convolution whose ``w_in`` rows are ordered
+    ``j * E + e``; activations stay in compute dtype."""
+    dt = torch_dtype(compute_dtype)
+    q, e = params["embed"].shape
+    hidden = params["b_h"].shape[0]
+    oh = torch.nn.functional.one_hot(samples.long(), q).to(dt)
+    emb = matmul_dt(oh, params["embed"], dt)                 # [B, T+f-1, E]
+    w = wnorm.resolve(params["w_in"]).reshape(frame_size, e, hidden)
+    x = torch.nn.functional.conv1d(
+        emb.transpose(1, 2), w.to(dt).permute(2, 1, 0)).transpose(1, 2)
+    h = torch.relu(x + params["b_in"].to(dt) + cond.to(dt))
+    h = torch.relu(matmul_dt(h, wnorm.resolve(params["w_h"]), dt)
+                   + params["b_h"].to(dt))
+    return matmul_f32(h, wnorm.resolve(params["w_out"]), dt) \
         + params["b_out"]
 
 

@@ -1,36 +1,55 @@
 """SampleRNN container: K frame tiers plus the sample-level MLP, as
-``samplernn_pase_tpu.models.samplernn`` (``init_params`` and
-``initial_state``; the teacher-forced ``forward``, ``nll_bits`` and
-``loss_fn`` belong to the training slice).
+``samplernn_pase_tpu.models.samplernn``: parameters and state, reset
+masking, the teacher-forced ``forward`` and the NLL.
 
 ``frame_sizes`` is ordered bottom -> top; tier k steps over
-``prod(frame_sizes[:k+1])`` samples; ``lookback = prod(frame_sizes)``.
+``prod(frame_sizes[:k+1])`` samples; ``lookback = prod(frame_sizes)``.  A
+training chunk supplies ``lookback`` samples of left context plus ``T``
+targets with ``T % lookback == 0``.  External conditioning arrives at
+``cond_rate`` samples per frame and is gathered to each tier's frame rate
+(nearest previous frame).
+
+Training RNN route (``cfg.pallas_train_rnn``, as the reference's
+``forward``): ``True`` or ``"auto"`` on CUDA tensors runs each eligible GRU
+tier through the whole-sequence kernel (``ops/kernels/rnn_train.py``, whose
+docstring gives the eligibility on the H100: GRU, ``dim % 8 == 0``, and
+the serial kernels' blocks co-resident, dim <= 2,112 in bf16 on 132 SMs);
+an LSTM tier there raises ``NotImplementedError`` (ROADMAP.md B6) and a
+GRU tier the kernel cannot take raises ``ValueError`` with the reason.
+``False`` is the reference's own scan route, the autograd ``rnn_scan``,
+everywhere, and the only route that scans on the card.  On CPU tensors
+``True`` runs the kernel's plain versions for GRU tiers and the scan for
+LSTM tiers; ``"auto"`` scans.
 """
 
 from __future__ import annotations
 
+import math
+import sys
+
 import torch
+import torch.utils.checkpoint
 
 from samplernn_pase_tpu_torch.config import SampleRNNConfig
+from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import frame_rnn, sample_mlp
 from samplernn_pase_tpu_torch.ops import init as winit
+from samplernn_pase_tpu_torch.ops.framing import frame_signal
+from samplernn_pase_tpu_torch.ops.kernels import rnn_train
+from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+from samplernn_pase_tpu_torch.ops.mulaw import levels_to_float
+from samplernn_pase_tpu_torch.tree import tree_map
 
 Params = dict
 State = tuple
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 def init_params(gen: torch.Generator, cfg: SampleRNNConfig,
-                device="cpu") -> Params:
+                device=None) -> Params:
     """Random float32 parameters drawn from ``gen`` (a CPU generator, so
-    a seed gives the same weights everywhere), moved to ``device``."""
+    a seed gives the same weights everywhere), moved to ``device``: the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     tiers = [
         frame_rnn.init_frame_tier(
             gen, span=cfg.tier_spans[k], frame_size=cfg.frame_sizes[k],
@@ -49,7 +68,7 @@ def init_params(gen: torch.Generator, cfg: SampleRNNConfig,
             raise ValueError("n_speakers requires cond_dim and cond_rate")
         params["speaker"] = winit.uniform(
             gen, (cfg.n_speakers, cfg.cond_dim), scale=0.1)
-    return _to(params, device)
+    return tree_map(lambda t: t.to(device), params)
 
 
 def initial_state(params: Params, cfg: SampleRNNConfig, batch: int) -> State:
@@ -59,3 +78,163 @@ def initial_state(params: Params, cfg: SampleRNNConfig, batch: int) -> State:
             params["tiers"][k], batch, cfg.dim, cfg.n_rnn, cfg.rnn_type,
             device)
         for k in range(cfg.n_tiers))
+
+
+def slice_state_lane(state: State, lane: int) -> State:
+    """Lane ``lane`` of a batched state, as a batch-1 state (the batch is
+    axis -2 in every tier state layout)."""
+    return tuple(h[..., lane:lane + 1, :] for h in state)
+
+
+def reset_state(params: Params, cfg: SampleRNNConfig, state: State,
+                resets) -> State:
+    """Reset (to the learned h0, or zeros) the state of lanes whose flag
+    is set.  resets: bool/int [B]."""
+    init = initial_state(params, cfg, resets.shape[0])
+    out = []
+    for s, s0 in zip(state, init):
+        shape = [1] * s.dim()
+        shape[-2] = resets.shape[0]
+        mask = resets.to(s.dtype).reshape(shape)
+        out.append(s0 * mask + s * (1.0 - mask))
+    return tuple(out)
+
+
+_RNN_PATH_LOGGED: set = set()
+
+
+def _log_rnn_path(k: int, use_kernel: bool, reason: str):
+    """One line per tier and outcome: which training RNN route a tier
+    takes (the sequence kernel or the scan), so a measurement names the
+    path it measured."""
+    key = (k, use_kernel, reason)
+    if key in _RNN_PATH_LOGGED:
+        return
+    _RNN_PATH_LOGGED.add(key)
+    what = "sequence kernel" if use_kernel else f"scan ({reason})"
+    print(f"[samplernn] tier {k} training RNN path: {what}", file=sys.stderr)
+
+
+def _rnn_route(cfg: SampleRNNConfig, k: int, device) -> bool:
+    """Whether tier k's training RNN runs through ``gru_sequence``.  On
+    CUDA under ``True``/``"auto"`` a tier the kernel cannot take raises:
+    only ``pallas_train_rnn=False`` scans on the card."""
+    flag = cfg.pallas_train_rnn
+    on_cuda = device.type == "cuda"
+    enabled = flag is True or (flag == "auto" and on_cuda)
+    reason = ""
+    if not enabled:
+        reason = ("pallas_train_rnn=False" if flag is False
+                  else "auto: not on a CUDA device")
+    elif on_cuda:
+        if cfg.rnn_type == "lstm":
+            raise NotImplementedError(
+                "pallas_train_rnn on CUDA: the LSTM sequence kernel comes "
+                "with ROADMAP.md B6; set pallas_train_rnn=False to scan")
+        why = rnn_train.kernel_scope_error(cfg.rnn_type, cfg.dim,
+                                           cfg.compute_dtype, device)
+        if why:
+            raise ValueError(
+                f"pallas_train_rnn={flag!r} on CUDA: tier {k}: {why}; set "
+                "pallas_train_rnn=False to scan")
+    elif cfg.rnn_type != "gru":
+        reason = f"no plain sequence version for rnn_type={cfg.rnn_type}"
+    use = enabled and not reason
+    _log_rnn_path(k, use, reason)
+    return use
+
+
+def cond_index(n_frames: int, span: int, cond_rate: int, device=None):
+    """Frame j of a tier with step ``span`` reads cond frame
+    (j*span)//rate."""
+    return (torch.arange(n_frames, device=device) * span) // cond_rate
+
+
+def _tier_ext_cond(cond, n_frames: int, span: int, cond_rate: int):
+    if cond is None:
+        return None
+    idx = cond_index(n_frames, span, cond_rate, cond.device).clamp(
+        0, cond.shape[1] - 1)
+    return cond[:, idx]
+
+
+def speaker_cond(params: Params, cfg: SampleRNNConfig, speakers, cond,
+                 n_cond_frames: int):
+    """Fold per-lane speaker ids [B] into the conditioning stream: the
+    learned embedding is broadcast over time and added onto (or used as)
+    the external conditioning."""
+    spk = params["speaker"][speakers.long()]            # [B, cond_dim]
+    if cond is None:
+        return spk[:, None, :].expand(spk.shape[0], n_cond_frames,
+                                      spk.shape[1])
+    return cond + spk[:, None, :]
+
+
+def forward(params: Params, cfg: SampleRNNConfig, inputs, state: State,
+            cond=None, speakers=None):
+    """Teacher-forced forward pass.
+
+    inputs [B, lookback + T] int levels; cond [B, T // cond_rate,
+    cond_dim] or None; speakers [B] int ids or None (needs n_speakers).
+    Returns (logits [B, T, q_levels] float32, new_state)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    lookback = cfg.lookback
+    t = inputs.shape[1] - lookback
+    if t % lookback:
+        raise ValueError(f"T={t} must be a multiple of lookback={lookback}")
+    if speakers is not None:
+        cond = speaker_cond(params, cfg, speakers, cond,
+                            max(t // cfg.cond_rate, 1))
+    x_float = levels_to_float(inputs, cfg.q_levels)
+    upper = None
+    new_states = [None] * cfg.n_tiers
+    for k in range(cfg.n_tiers - 1, -1, -1):
+        span = cfg.tier_spans[k]
+        frames = frame_signal(
+            x_float[:, lookback - span: lookback - span + t], span)
+        ext = _tier_ext_cond(cond, t // span, span, cfg.cond_rate)
+        use_kernel = _rnn_route(cfg, k, inputs.device)
+
+        def apply_fn(p, fr, up, ex, st, _fs=cfg.frame_sizes[k],
+                     _use=use_kernel):
+            return frame_rnn.tier_apply(
+                p, fr, up, ex, st, frame_size=_fs, rnn_type=cfg.rnn_type,
+                compute_dtype=dt, use_kernel=_use)
+
+        if cfg.remat:
+            # recompute the tier's activations in the backward pass
+            upper, new_states[k] = torch.utils.checkpoint.checkpoint(
+                apply_fn, params["tiers"][k], frames, upper, ext, state[k],
+                use_reentrant=False)
+        else:
+            upper, new_states[k] = apply_fn(params["tiers"][k], frames,
+                                            upper, ext, state[k])
+    f1 = cfg.frame_sizes[0]
+    mlp_samples = inputs[:, lookback - f1: lookback + t - 1]
+    logits = sample_mlp.mlp_apply(params["mlp"], mlp_samples, upper, f1, dt)
+    return logits, tuple(new_states)
+
+
+def nll_bits(logits, targets, valid=None):
+    """Cross-entropy in bits per sample: logsumexp minus the picked logit.
+
+    ``valid`` (int [B] or None): the number of real targets per lane;
+    positions at or past it are padding and masked out (sum over real
+    positions / their count).  An all-padding batch gives 0."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nats = lse - picked                                   # [B, T]
+    if valid is None:
+        return nats.mean() / math.log(2.0)
+    mask = (torch.arange(nats.shape[-1], device=nats.device)[None, :]
+            < valid.to(nats.device)[:, None]).to(nats.dtype)
+    return ((nats * mask).sum() / mask.sum().clamp(min=1.0)) / math.log(2.0)
+
+
+def loss_fn(params: Params, cfg: SampleRNNConfig, batch_inputs,
+            batch_targets, state: State, cond=None, speakers=None,
+            valid=None):
+    logits, new_state = forward(params, cfg, batch_inputs, state, cond,
+                                speakers)
+    return nll_bits(logits, batch_targets, valid), new_state

@@ -61,9 +61,11 @@ def reset_launches():
 
 
 def plain_numerics():
-    """Full float32 products for plain versions run on the card."""
+    """Full float32 products for plain versions run on the card, and
+    float32 reductions in 16-bit products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _fn(name):

@@ -1,0 +1,317 @@
+"""The whole-sequence GRU of a training step: K4 forward and backward,
+their plain PyTorch versions, and ``gru_sequence``, the counterpart of
+``samplernn_pase_tpu/ops/pallas/rnn_train.py:gru_sequence``.
+
+Math (gates r, z, n in the cuDNN order, as ``rnn_cells.gru_step``):
+    xg = round(x_t) @ Wih + bih ; hg = round(h_{t-1}) @ Whh + bhh
+    r = s(xr + hr) ; z = s(xz + hz) ; n = tanh(xn + r * hn)
+    h_t = (1 - z) * n + z * h_{t-1}
+``round`` is the cast to the weights dtype; products accumulate in
+float32; biases, gates and the carried ``h`` are float32.  ``h_seq`` is
+stored in the weights dtype and handed back as float32; ``h_fin`` is the
+float32 carry.  The backward pass follows the reference's VJP: ``dh_seq``
+is rounded to the weights dtype; ``h_{t-1}`` is the stored (rounded)
+``h_seq[t-1]``, or the float32 ``h0`` at t=0; ``d_xg``/``d_hg`` are
+rounded before the ``dx``, ``dW`` and carry products, while the bias sums
+and the ``g*z`` term use them unrounded; ``dx`` is stored in the weights
+dtype and cast to ``x``'s dtype; ``dh0``, ``dW`` and ``db`` are float32.
+
+The kernel (``csrc/gru_sequence.cu``) keeps ``xg`` and ``hg`` of the
+forward pass as residuals ([N, B, 3H] float32 each), so the backward pass
+does not recompute them: the values equal the reference's recompute, since
+``hbuf[t] = round(h_{t-1})`` is what both products read.
+
+Eligibility on the H100 (``kernel_scope_error``): a GRU (LSTM is ROADMAP
+B6); ``dim % 8 == 0`` (each block of the serial kernels owns 8 hidden
+units and reads rows in 16-byte vectors); each block's Whh slice and a
+staged tile in shared memory, about 48*dim + 34,816 bytes in bf16 and
+96*dim + 67,584 in float32, within the 227 KB a block may use; and all
+``dim / 8`` blocks co-resident for the grid barrier.  The library answers
+the last two for the card at hand (``srnn_gru_seq_fits``): on an H100
+with 132 SMs the flagship's dim 1024 fits in both dtypes, two bf16 blocks
+share an SM up to dim 2,112, and float32 takes one block per SM, so
+dim <= 1,056.  Device memory holds the residuals: 24*N*B*H bytes for xg
+and hg plus (N+1)*B*H in the weights dtype.
+
+Each wrapper runs its plain version on CPU tensors (how the CPU tests run)
+and, on CUDA tensors, launches its kernel or raises; it adds one to its
+count in ``LAUNCHES`` per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from samplernn_pase_tpu_torch.ops.kernels import _build
+from samplernn_pase_tpu_torch.ops.kernels.decode import (
+    _check, _on_cpu, _stream)
+from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0}
+
+UNITS = 8                       # hidden units per block
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "gru_sequence_fwd": ("srnn_gru_seq_fwd", [_P] * 10 + [_I] * 4 + [_P]),
+    "gru_sequence_bwd": ("srnn_gru_seq_bwd", [_P] * 17 + [_I] * 4 + [_P]),
+    "fits": ("srnn_gru_seq_fits", [_I, _I]),
+}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _fn(name):
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(_build.load("gru_sequence"), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fits(dim: int, w_bf16: int, index: int) -> int:
+    """``srnn_gru_seq_fits`` on CUDA device ``index``, asked once per
+    width, weights dtype and device."""
+    with torch.cuda.device(index):
+        return _fn("fits")(dim, w_bf16)
+
+
+def kernel_scope_error(rnn_type: str, dim: int, weights_dtype,
+                       device) -> str | None:
+    """Why the GRU sequence kernels cannot run a tier of this width on
+    ``device`` (a CUDA device: the library is asked), or None.  The
+    training route asks this once per tier; a launch the card cannot
+    hold fails in the library instead of deadlocking."""
+    if rnn_type != "gru":
+        return (f"no training kernel for rnn_type={rnn_type}: LSTM comes "
+                "with ROADMAP.md B6")
+    if dim % UNITS:
+        return f"dim {dim} is not a multiple of {UNITS}"
+    wt = torch_dtype(weights_dtype)
+    if wt not in (torch.float32, torch.bfloat16):
+        return f"no sequence kernel for weights dtype {wt}"
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    fits = _fits(dim, int(wt == torch.bfloat16), index)
+    if fits == 1:
+        return f"dim {dim} needs more shared memory than a block has"
+    if fits == 2:
+        return (f"dim {dim} needs {dim // UNITS} co-resident blocks, more "
+                "than the card holds")
+    if fits:
+        raise RuntimeError(f"srnn_gru_seq_fits: CUDA error {-fits}")
+    return None
+
+
+def _launch(name, *args):
+    err = _fn(name)(*args)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _weights_dtype(weights_dtype) -> torch.dtype:
+    wt = torch_dtype(weights_dtype)
+    if wt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gru_sequence: weights dtype {wt}")
+    return wt
+
+
+def _gates(xg, hg, h_prev, hdim):
+    r = torch.sigmoid(xg[:, :hdim] + hg[:, :hdim])
+    z = torch.sigmoid(xg[:, hdim:2 * hdim] + hg[:, hdim:2 * hdim])
+    hn = hg[:, 2 * hdim:]
+    n = torch.tanh(xg[:, 2 * hdim:] + r * hn)
+    return r, z, n, hn
+
+
+# ------------------------------------------------------------ forward --
+
+def gru_sequence_fwd_plain(x, h0, wih, bih, whh, bhh,
+                           weights_dtype="bfloat16"):
+    """Plain version of the forward kernel.  x [N, B, H]; h0 [B, H];
+    wih/whh [H, 3H]; biases [3H].  Returns (hbuf [N+1, B, H] in the
+    weights dtype with hbuf[0] = round(h0) and hbuf[t+1] = round(h_t),
+    h_fin [B, H] float32, xg and hg [N, B, 3H] float32)."""
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    w_hh = whh.to(wt).to(f32)
+    xg = (torch.matmul(x.to(wt).to(f32).reshape(n * b, hdim),
+                       wih.to(wt).to(f32))
+          + bih.to(f32).reshape(-1)).reshape(n, b, 3 * hdim)
+    hbuf = torch.empty((n + 1, b, hdim), dtype=wt, device=x.device)
+    hbuf[0] = h0.to(wt)
+    hg = torch.empty_like(xg)
+    h = h0.to(f32)
+    for t in range(n):
+        hg[t] = torch.matmul(hbuf[t].to(f32), w_hh) + bhh.to(f32).reshape(-1)
+        _, z, nn, _ = _gates(xg[t], hg[t], h, hdim)
+        h = (1.0 - z) * nn + z * h
+        hbuf[t + 1] = h.to(wt)
+    return hbuf, h, xg, hg
+
+
+def gru_sequence_fwd(x, h0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
+    """K4 forward: the kernel on CUDA tensors, its plain version on CPU
+    tensors; arguments and results as ``gru_sequence_fwd_plain``."""
+    if _on_cpu(x, h0, wih, bih, whh, bhh):
+        return gru_sequence_fwd_plain(x, h0, wih, bih, whh, bhh,
+                                      weights_dtype)
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    xq = x.to(wt).contiguous()
+    w_ih, w_hh = wih.to(wt).contiguous(), whh.to(wt).contiguous()
+    b_ih = bih.to(f32).reshape(-1).contiguous()
+    b_hh = bhh.to(f32).reshape(-1).contiguous()
+    h0f = h0.to(f32).contiguous()
+    _check(w_ih, "wih", (wt,), (hdim, 3 * hdim))
+    _check(w_hh, "whh", (wt,), (hdim, 3 * hdim))
+    _check(b_ih, "bih", (f32,), (3 * hdim,))
+    _check(b_hh, "bhh", (f32,), (3 * hdim,))
+    _check(h0f, "h0", (f32,), (b, hdim))
+    dev = x.device
+    xg = torch.empty((n, b, 3 * hdim), dtype=f32, device=dev)
+    hg = torch.empty_like(xg)
+    hbuf = torch.empty((n + 1, b, hdim), dtype=wt, device=dev)
+    hfin = torch.empty((b, hdim), dtype=f32, device=dev)
+    _launch("gru_sequence_fwd", xq.data_ptr(), h0f.data_ptr(),
+            w_ih.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), xg.data_ptr(), hbuf.data_ptr(), hg.data_ptr(),
+            hfin.data_ptr(), n, b, hdim, int(wt == torch.bfloat16),
+            _stream(x))
+    return hbuf, hfin, xg, hg
+
+
+# ----------------------------------------------------------- backward --
+
+def gru_sequence_bwd_plain(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin,
+                           weights_dtype="bfloat16"):
+    """Plain version of the backward kernel.  x, h0, wih, whh as the
+    forward; hbuf, xg, hg its residuals; dh_seq [N, B, H]; dh_fin [B, H].
+    Returns (dx [N, B, H] in the weights dtype, dh0 [B, H], dwih [H, 3H],
+    dbih [3H], dwhh [H, 3H], dbhh [3H], all float32 but dx)."""
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    w_hh = whh.to(wt).to(f32)
+    dhs = dh_seq.to(wt)
+    d_xg = torch.empty((n, b, 3 * hdim), dtype=wt, device=x.device)
+    d_hg = torch.empty_like(d_xg)
+    dbih = torch.zeros(3 * hdim, dtype=f32, device=x.device)
+    dbhh = torch.zeros_like(dbih)
+    carry = dh_fin.to(f32)
+    for t in range(n - 1, -1, -1):
+        g = carry + dhs[t].to(f32)
+        h_prev = h0.to(f32) if t == 0 else hbuf[t].to(f32)
+        r, z, nn, hn = _gates(xg[t], hg[t], h_prev, hdim)
+        dn = g * (1.0 - z)
+        dz = g * (h_prev - nn)
+        dtanh = dn * (1.0 - nn * nn)
+        dhn = dtanh * r
+        dr = dtanh * hn
+        dxr = dr * r * (1.0 - r)
+        dxz = dz * z * (1.0 - z)
+        dx_t = torch.cat([dxr, dxz, dtanh], dim=1)
+        dh_t = torch.cat([dxr, dxz, dhn], dim=1)
+        dbih += dx_t.sum(0)
+        dbhh += dh_t.sum(0)
+        d_xg[t] = dx_t.to(wt)
+        d_hg[t] = dh_t.to(wt)
+        carry = g * z + torch.matmul(d_hg[t].to(f32), w_hh.T)
+    rows = n * b
+    dxg2 = d_xg.to(f32).reshape(rows, 3 * hdim)
+    dhg2 = d_hg.to(f32).reshape(rows, 3 * hdim)
+    dx = torch.matmul(dxg2, wih.to(wt).to(f32).T).to(wt).reshape(n, b, hdim)
+    dwih = torch.matmul(x.to(wt).to(f32).reshape(rows, hdim).T, dxg2)
+    dwhh = torch.matmul(hbuf[:n].to(f32).reshape(rows, hdim).T, dhg2)
+    return dx, carry, dwih, dbih, dwhh, dbhh
+
+
+def gru_sequence_bwd(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin,
+                     weights_dtype="bfloat16"):
+    """K4 backward: the kernel on CUDA tensors, its plain version on CPU
+    tensors; arguments and results as ``gru_sequence_bwd_plain``."""
+    if _on_cpu(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin):
+        return gru_sequence_bwd_plain(x, h0, wih, whh, hbuf, xg, hg, dh_seq,
+                                      dh_fin, weights_dtype)
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    xq = x.to(wt).contiguous()
+    w_ih, w_hh = wih.to(wt).contiguous(), whh.to(wt).contiguous()
+    h0f = h0.to(f32).contiguous()
+    dhs = dh_seq.to(wt).contiguous()
+    dhf = dh_fin.to(f32).contiguous()
+    _check(w_ih, "wih", (wt,), (hdim, 3 * hdim))
+    _check(w_hh, "whh", (wt,), (hdim, 3 * hdim))
+    _check(hbuf, "hbuf", (wt,), (n + 1, b, hdim))
+    _check(xg, "xg", (f32,), (n, b, 3 * hdim))
+    _check(hg, "hg", (f32,), (n, b, 3 * hdim))
+    _check(dhs, "dh_seq", (wt,), (n, b, hdim))
+    _check(dhf, "dh_fin", (f32,), (b, hdim))
+    dev = x.device
+    d_xg = torch.empty((n, b, 3 * hdim), dtype=wt, device=dev)
+    d_hg = torch.empty_like(d_xg)
+    dx = torch.empty((n, b, hdim), dtype=wt, device=dev)
+    dh0 = torch.empty((b, hdim), dtype=f32, device=dev)
+    dwih = torch.empty((hdim, 3 * hdim), dtype=f32, device=dev)
+    dwhh = torch.empty_like(dwih)
+    dbih = torch.empty(3 * hdim, dtype=f32, device=dev)
+    dbhh = torch.empty_like(dbih)
+    _launch("gru_sequence_bwd", xq.data_ptr(), h0f.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), hbuf.data_ptr(),
+            xg.data_ptr(), hg.data_ptr(), dhs.data_ptr(), dhf.data_ptr(),
+            d_xg.data_ptr(), d_hg.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
+            dwih.data_ptr(), dbih.data_ptr(), dwhh.data_ptr(),
+            dbhh.data_ptr(), n, b, hdim, int(wt == torch.bfloat16),
+            _stream(x))
+    return dx, dh0, dwih, dbih, dwhh, dbhh
+
+
+# ------------------------------------------------------ the function --
+
+class _GruSequence(torch.autograd.Function):
+    """Forward launches the forward kernel; backward the backward kernel
+    (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, h0, wih, bih, whh, bhh, weights_dtype):
+        wt = _weights_dtype(weights_dtype)
+        xq = x.to(wt)
+        hbuf, h_fin, xg, hg = gru_sequence_fwd(xq, h0, wih, bih, whh, bhh,
+                                               wt)
+        ctx.save_for_backward(xq, h0, wih, whh, hbuf, xg, hg)
+        ctx.meta = (wt, x.dtype, bih.shape, bhh.shape)
+        return hbuf[1:].to(torch.float32, copy=True), h_fin
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_fin):
+        xq, h0, wih, whh, hbuf, xg, hg = ctx.saved_tensors
+        wt, x_dtype, bih_shape, bhh_shape = ctx.meta
+        if dh_seq is None:
+            dh_seq = torch.zeros(xq.shape, dtype=wt, device=xq.device)
+        if dh_fin is None:
+            dh_fin = torch.zeros_like(h0, dtype=torch.float32)
+        dx, dh0, dwih, dbih, dwhh, dbhh = gru_sequence_bwd(
+            xq, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin, wt)
+        return (dx.to(x_dtype), dh0, dwih.to(wih.dtype),
+                dbih.reshape(bih_shape), dwhh.to(whh.dtype),
+                dbhh.reshape(bhh_shape), None)
+
+
+def gru_sequence(x_seq, h0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
+    """Run a GRU over x_seq [N, B, H_in == H]; returns (h_seq [N, B, H]
+    float32, h_final [B, H] float32), differentiable through the backward
+    kernel."""
+    return _GruSequence.apply(x_seq, h0, wih, bih, whh, bhh, weights_dtype)

@@ -6,9 +6,11 @@ compute dtype and accumulates in float32.  ``matmul_f32`` does the same
 by upcasting the rounded operands: float32 products of bf16 values are
 exact, so only the order of the float32 sum can differ.  Without
 ``preferred_element_type`` JAX returns the compute dtype: ``matmul_dt``
-rounds the float32 result once.  These serve the plain model modules;
-the generation path's products run in the CUDA kernels of
-``ops.kernels``.
+rounds the float32 result once; on the card, where a 16-bit product
+accumulates in float32 (cuBLAS's compute type, with reduced-precision
+reductions off: ``decode.plain_numerics``), it is that one product.
+These serve the model modules; the products of the reference's Pallas
+kernels run in the CUDA kernels of ``ops.kernels``.
 """
 
 from __future__ import annotations
@@ -33,4 +35,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
 
 
 def matmul_dt(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
-    return matmul_f32(x, w, dt).to(torch_dtype(dt))
+    dt = torch_dtype(dt)
+    if x.is_cuda and dt != torch.float32:
+        return torch.matmul(x.to(dt), w.to(dt))
+    return matmul_f32(x, w, dt).to(dt)

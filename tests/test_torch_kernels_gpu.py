@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K3 against their plain versions, on the card.
+"""The CUDA kernels K1-K4 against their plain versions, on the card, and
+the training route's behaviour on CUDA tensors.
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 tests/conftest.py imports JAX; on a GPU host without JAX run them with
@@ -111,3 +112,120 @@ def test_bf16_generation_rescores(cuda):
     assert levels.min() >= 0 and levels.max() < 256
     assert tgen.rescore(params, cfg, levels, 0.95, seed=3) >= 0.99
     assert np.isfinite(levels.float().cpu().numpy()).all()
+
+
+# ------------------------------------------------ K4 gru_sequence --
+
+def _gru_inputs(dev, n, b, h, seed=4):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    return dict(x=rnd(n, b, h), h0=rnd(b, h, scale=0.5),
+                wih=rnd(h, 3 * h, scale=h ** -0.5), bih=rnd(3 * h, scale=0.1),
+                whh=rnd(h, 3 * h, scale=h ** -0.5), bhh=rnd(3 * h, scale=0.1),
+                dh_seq=rnd(n, b, h), dh_fin=rnd(b, h))
+
+
+def _near(got, want, atol, rel=0.0):
+    err = (got.float() - want.float()).abs().max().item()
+    bound = atol + rel * want.float().abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+# float32: the same values up to the order of float32 sums (1e-5, and
+# 1e-5 of the largest value for dW and db, the sums over N*B rows).  bf16:
+# stored
+# values may differ by one rounding where a float32 sum lands on the
+# other side of a bf16 rounding boundary; 2**-7 of the largest value is
+# two bf16 ulps at that scale.
+@pytest.mark.parametrize("dtype,n,b,h", [("float32", 6, 4, 128),
+                                         ("float32", 3, 130, 40),
+                                         ("float32", 4, 130, 1024),
+                                         ("bfloat16", 5, 16, 256),
+                                         ("bfloat16", 3, 130, 40),
+                                         ("bfloat16", 4, 130, 1024)])
+def test_gru_sequence_kernels_match_plain(cuda, dtype, n, b, h):
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    a = _gru_inputs(cuda, n, b, h)
+    fargs = (a["x"], a["h0"], a["wih"], a["bih"], a["whh"], a["bhh"], dtype)
+    got = rt.gru_sequence_fwd(*fargs)
+    want = rt.gru_sequence_fwd_plain(*fargs)
+    atol, rel = (1e-5, 0.0) if dtype == "float32" else (0.0, 2 ** -7)
+    for g, w in zip(got, want):
+        _near(g, w, atol, rel)
+    hbuf, _, xg, hg = want
+    bargs = (a["x"], a["h0"], a["wih"], a["whh"], hbuf, xg, hg,
+             a["dh_seq"], a["dh_fin"], dtype)
+    got = rt.gru_sequence_bwd(*bargs)
+    want = rt.gru_sequence_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dh0", "dwih", "dbih", "dwhh", "dbhh"),
+                          got, want):
+        if dtype == "float32":
+            _near(g, w, 1e-5, 1e-5 if name[:2] in ("dw", "db") else 0.0)
+        else:
+            _near(g, w, 0.0, 2 ** -7)
+    # a fixed summation order: the same gradient twice
+    again = rt.gru_sequence_bwd(*bargs)
+    for g, w in zip(got, again):
+        assert torch.equal(g, w)
+
+
+def test_lstm_train_route_raises_on_cuda(cuda):
+    cfg = SampleRNNConfig(frame_sizes=(4, 2), dim=16, embed_dim=8,
+                          rnn_type="lstm", compute_dtype="float32",
+                          pallas_train_rnn=True)
+    params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
+                                   cuda)
+    state = samplernn.initial_state(params, cfg, 2)
+    inputs = torch.randint(0, 256, (2, cfg.lookback + 16),
+                           dtype=torch.int32).to(cuda)
+    with pytest.raises(NotImplementedError, match="B6"):
+        samplernn.forward(params, cfg, inputs, state)
+
+
+@pytest.mark.parametrize("flag", [True, "auto"])
+def test_ineligible_gru_train_route_raises_on_cuda(cuda, flag):
+    """A GRU width the sequence kernel does not tile raises on the card
+    instead of scanning; pallas_train_rnn=False scans."""
+    import dataclasses
+    cfg = SampleRNNConfig(frame_sizes=(4, 2), dim=100, embed_dim=8,
+                          compute_dtype="float32", pallas_train_rnn=flag)
+    params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
+                                   cuda)
+    state = samplernn.initial_state(params, cfg, 2)
+    inputs = torch.randint(0, 256, (2, cfg.lookback + 16),
+                           dtype=torch.int32).to(cuda)
+    with pytest.raises(ValueError, match="not a multiple of 8"):
+        samplernn.forward(params, cfg, inputs, state)
+    logits, _ = samplernn.forward(
+        params, dataclasses.replace(cfg, pallas_train_rnn=False), inputs,
+        state)
+    assert torch.isfinite(logits).all()
+
+
+def test_train_step_kernel_route_matches_scan(cuda):
+    import dataclasses
+
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    from samplernn_pase_tpu_torch.train.optim import make_optimizer
+    from samplernn_pase_tpu_torch.train.trainer import make_train_step
+    cfg, params = _model(cuda, dim=64)
+    tx = make_optimizer(1e-3, 1.0)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (3, cfg.lookback * 5), generator=gen,
+                      dtype=torch.int32).to(cuda)
+    resets = torch.ones(3, device=cuda)
+    out = {}
+    for flag in (True, False):
+        c = dataclasses.replace(cfg, pallas_train_rnn=flag)
+        rt.reset_launches()
+        out[flag] = make_train_step(c, tx)(
+            params, tx.init(params), samplernn.initial_state(params, c, 3),
+            x, x[:, c.lookback:], resets)
+        assert all(rt.LAUNCHES.values()) == flag, rt.LAUNCHES
+    assert abs(out[True][3].item() - out[False][3].item()) < 1e-5
+    for a, c in zip(out[True][2], out[False][2]):
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=0)

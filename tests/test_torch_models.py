@@ -126,7 +126,7 @@ def test_initial_state_and_init_shapes():
                   rnn_type=rnn_type, weight_norm=wn, n_speakers=2,
                   cond_dim=4, cond_rate=8)
         own = convert.to_numpy(tsrnn.init_params(
-            torch.Generator().manual_seed(0), TCfg(**kw)))
+            torch.Generator().manual_seed(0), TCfg(**kw), device="cpu"))
         ref = jax.device_get(jsrnn.init_params(jax.random.PRNGKey(0),
                                                JCfg(**kw)))
         fo, to = jax.tree.flatten(own)
@@ -136,8 +136,8 @@ def test_initial_state_and_init_shapes():
             assert a.shape == b.shape and a.dtype == b.dtype
             assert np.abs(a).max() <= np.abs(b).max() * 1.5 + 1e-6
     w = tsrnn.init_params(torch.Generator().manual_seed(1),
-                          TCfg(frame_sizes=(4, 2), dim=16,
-                               embed_dim=8))["tiers"][0]["rnn"][0]["w_hh"]
+                          TCfg(frame_sizes=(4, 2), dim=16, embed_dim=8),
+                          device="cpu")["tiers"][0]["rnn"][0]["w_hh"]
     for g in range(3):
         blk = w[:, g * 16:(g + 1) * 16]
         torch.testing.assert_close(blk.T @ blk, torch.eye(16), atol=1e-5,
