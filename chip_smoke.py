@@ -9,26 +9,40 @@ Phases (any failure ends the run with a non-zero exit):
    per CUDA source under samplernn_pase_tpu_torch/ops/kernels/csrc, all
    started together, into build/torch_kernels/;
 2. each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes in bf16 and at a small float32 shape, and timed
-   beside its plain version, its bound and one library call computing
-   the same function (K2: torch.addmm; K3: aten._thnn_fused_gru_cell;
-   K4: cuDNN's GRU through torch.nn.GRU, forward and forward + backward);
-3. the generation path at full width: the flagship model (2-tier GRU,
-   frame_sizes (16, 4), dim 1024, embed 256, q 256, bf16) with random
-   weights from a seed and its kernel weights prepared once, B=128:
-   generate_levels greedy and sampled (T=0.95), and one sampled request
-   through make_generator(use_kernels="frame"), which must equal the
-   sampled one.  Every decode kernel's launch count must move, levels
-   must lie in [0, 256), and rescoring the emitted history through the
-   plain per-step modules must agree on >= 0.99 of the samples;
-4. the training path at full width: the flagship's TBPTT train step
-   (make_train_step, make_optimizer(1e-3, 1.0)) at B=128, seq_len 1024
-   on random levels from a seed, 2 warm steps then 5 timed.  Both K4
-   kernels must launch twice per step (one per tier), the NLL must be
-   finite and fall, and one step through the plain scan route
-   (pallas_train_rnn=False) must agree in NLL and gradients, in float32
-   and in bf16; then graft_entry.entry() on the card;
-5. a {"kernels": [...]} line, then the last line
+   main paths' shapes in bf16 and at a small float32 shape (K2 at every
+   distinct product of both decode paths, the flagship's and config 2's,
+   its entry in the kernels line weighted by each product's launches),
+   and timed beside its plain version, its bound and one library call
+   computing the same function (K2: torch.addmm; K3:
+   aten._thnn_fused_gru_cell; K4/K5: cuDNN's GRU/LSTM through
+   torch.nn.GRU/LSTM, forward and forward + backward; K6:
+   aten._thnn_fused_lstm_cell);
+3. the flagship's generation at full width (2-tier GRU, frame_sizes
+   (16, 4), dim 1024, embed 256, q 256, bf16) with random weights from a
+   seed and its kernel weights prepared once, B=128: generate_levels
+   greedy and sampled (T=0.95), and one sampled request through
+   make_generator(use_kernels="frame"), which must equal the sampled one.
+   Every decode kernel of the path must launch, levels must lie in
+   [0, 256), and rescoring the emitted history through the plain
+   per-step modules must agree on >= 0.99 of the samples;
+4. the flagship's TBPTT train step (make_train_step, make_optimizer(1e-3,
+   1.0)) at B=128, seq_len 1024 on random levels from a seed, 2 warm
+   steps then 5 timed.  Both K4 kernels must launch twice per step (one
+   per tier), the NLL must be finite and fall, and one step through the
+   plain scan route (pallas_train_rnn=False) must agree in NLL and
+   gradients, in float32 and in bf16; then graft_entry.entry() on the card;
+5. config 2's generation (configs/c2_3tier_lstm.json: 3-tier LSTM,
+   frame_sizes (16, 4, 4), dim 1024, bf16) with random weights from a
+   seed, B=128, 4,096 samples: greedy and sampled at the config's T=1.0,
+   and one make_generator(use_kernels="frame") request equal to the
+   sampled one, through K1, K2 and K6 (K1, K2 and K6 launch counts checked),
+   rescoring >= 0.99 on the first 1,024 samples;
+6. config 2's TBPTT training at B=64, seq_len 1024 through
+   make_multi_train_step at the config's steps_per_call=8 (one warm call,
+   one timed): K5 forward and backward launch 3 times per step (one per
+   tier), the NLL is finite and falls, and one step agrees with the scan
+   route as in phase 4;
+7. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", ...}}.
 
 It imports nothing of JAX.  Without a CUDA device, or run from a
@@ -51,6 +65,8 @@ HBM_BYTES = 3.35e12     # bytes/s
 BATCH = 128             # lanes per request, as bench.py
 LENGTH = 1024           # samples per request: 16 flagship top frames
 SEQ_LEN = 1024          # TBPTT chunk, as scripts/bench_train.py
+C2_LENGTH = 4096        # samples per config-2 request: 16 top frames
+C2_RESCORE = 1024       # samples of it rescored through the plain modules
 
 
 class SmokeFailure(Exception):
@@ -73,6 +89,19 @@ def bound(nbytes: float, flops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled symbol of the kernels'
+    anonymous namespace (_ZN<len><namespace><len><name>...)."""
+    import re
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m:
+        rest = mangled[m.end() + int(m.group(1)):]
+        n = re.match(r"(\d+)", rest)
+        if n:
+            return rest[n.end():n.end() + int(n.group(1))]
+    return mangled[:60]
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -126,132 +155,172 @@ def device_ms(torch, fn, reps: int):
     return wall, wall
 
 
-def gru_inputs(torch, dev, n: int, b: int, h: int, seed: int):
-    """Random GRU sequence inputs from a seed: ((x, h0, wih, bih, whh,
-    bhh), dh_seq, dh_fin)."""
+# The sequence kernels: K4 (GRU, the flagship's tiers: N = 64 and 16 at
+# B=128) and K5 (LSTM, config 2's tiers: N = 64, 16 and 4 at B=64).  The
+# forward results and the backward's in the order the wrappers return
+# them; "pallas" the lines of the pallas_calls they replace.
+SEQ = {
+    "gru": dict(kernel="K4", gates=3, states=1, residuals=2,
+                fwd_out=("h_seq", "h_fin", "xg", "hg"),
+                bwd_out=("dx", "dh0", "dwih", "dbih", "dwhh", "dbhh"),
+                pallas=(137, 156)),
+    "lstm": dict(kernel="K5", gates=4, states=2, residuals=1,
+                 fwd_out=("h_seq", "c_seq", "h_fin", "c_fin", "g"),
+                 bwd_out=("dx", "dh0", "dc0", "dwih", "dbih", "dwhh",
+                          "dbhh"),
+                 pallas=(325, 346)),
+}
+
+
+def seq_args(torch, dev, rt, cell: str, n: int, b: int, h: int, seed: int,
+             dtype: str):
+    """Random inputs from a seed for K4 or K5: (forward args, backward
+    args built on the plain forward's residuals, the plain forward's
+    results, (x, h0, c0, wih, bih, whh, bhh), the output gradients)."""
     gen = torch.Generator().manual_seed(seed)
+    g = SEQ[cell]["gates"]
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    return ((rnd(n, b, h), rnd(b, h, scale=0.5),
-             rnd(h, 3 * h, scale=h ** -0.5), rnd(3 * h, scale=0.1),
-             rnd(h, 3 * h, scale=h ** -0.5), rnd(3 * h, scale=0.1)),
-            rnd(n, b, h), rnd(b, h))
+    x, h0, c0 = rnd(n, b, h), rnd(b, h, scale=0.5), rnd(b, h, scale=0.5)
+    wih, bih = rnd(h, g * h, scale=h ** -0.5), rnd(g * h, scale=0.1)
+    whh, bhh = rnd(h, g * h, scale=h ** -0.5), rnd(g * h, scale=0.1)
+    dhs, dhf, dcf = rnd(n, b, h), rnd(b, h), rnd(b, h)
+    if cell == "gru":
+        fargs = (x, h0, wih, bih, whh, bhh, dtype)
+        want = rt.gru_sequence_fwd_plain(*fargs)
+        bargs = (x, h0, wih, whh, want[0], want[2], want[3], dhs, dhf, dtype)
+        douts = (dhs, dhf)
+    else:
+        fargs = (x, h0, c0, wih, bih, whh, bhh, dtype)
+        want = rt.lstm_sequence_fwd_plain(*fargs)
+        bargs = (x, c0, wih, whh, want[0], want[1], want[4], dhs, dhf, dcf,
+                 dtype)
+        douts = (dhs, dhf, dcf)
+    return fargs, bargs, want, (x, h0, c0, wih, bih, whh, bhh), douts
 
 
-FWD_OUT = ("h_seq", "h_fin", "xg", "hg")
-BWD_OUT = ("dx", "dh0", "dwih", "dbih", "dwhh", "dbhh")
-
-
-def gru_bounds(n: int, b: int, h: int):
+def seq_bounds(cell: str, n: int, b: int, h: int):
     """(fwd, bwd) bounds in ms with what bounds them.  Bytes count each
-    input read once and each output written once (bf16 weights, x, h_seq,
-    dh_seq and dx; float32 biases, states, residuals xg/hg and gradients);
-    operations count the products, each 2*B*H*3H per step: 2 forward, 4
-    backward (dx, dWih, dWhh and the carry; xg and hg are residuals)."""
-    nbh, w, g3 = n * b * h, 2 * h * 3 * h, n * b * 3 * h
-    fwd_bytes = (2 * nbh + 4 * b * h + 2 * w + 4 * 6 * h
-                 + 2 * (nbh + b * h) + 4 * b * h + 4 * 2 * g3)
+    input read once and each output written once: bf16 weights, x, the
+    stored sequences (h_seq, and c_seq for K5), dh_seq and dx; float32
+    biases, states, residuals (K4: xg and hg; K5: g) and gradients.
+    Operations count the products, each 2*B*H*gates*H per step: 2
+    forward, 4 backward (dx, dWih, dWhh and the carry; the gates are
+    residuals, not recomputed)."""
+    sp = SEQ[cell]
+    g, st, res = sp["gates"], sp["states"], sp["residuals"]
+    nbh, w = n * b * h, 2 * h * g * h
+    fwd_bytes = (2 * nbh + 4 * st * b * h + 2 * w + 4 * 2 * g * h
+                 + 2 * (nbh + b * h) + 2 * (st - 1) * nbh + 4 * st * b * h
+                 + 4 * res * nbh * g)
     bwd_bytes = (2 * nbh + 4 * b * h + 2 * w + 2 * (nbh + b * h)
-                 + 4 * 2 * g3 + 2 * nbh + 4 * b * h
-                 + 2 * nbh + 4 * b * h + 4 * w + 4 * 6 * h)
-    prod = 2.0 * b * h * 3 * h
+                 + 2 * (st - 1) * nbh + 4 * res * nbh * g + 2 * nbh
+                 + 4 * st * b * h + 2 * nbh + 4 * st * b * h + 4 * w
+                 + 4 * 2 * g * h)
+    prod = 2.0 * b * h * g * h
     return (bound(fwd_bytes, n * 2 * prod, PEAK_BF16),
             bound(bwd_bytes, n * 4 * prod, PEAK_BF16))
 
 
-def check_gru_sequence(torch, dev, rt):
-    """K4 against its plain versions on the card, timed at both flagship
-    tiers.  Returns {"fwd"|"bwd": {"err", "rel_bf16", "ms", "plain",
-    "bound", "lib", "by"}}: "err" from the float32 check, "rel_bf16" the
-    worst bf16 error over max|plain| at the timed shapes, times averaged
-    over the tiers (one launch of each per tier per train step); or
-    raises SmokeFailure."""
+def check_sequence(torch, dev, rt, cell: str, b: int, tiers, h: int):
+    """K4 ("gru") or K5 ("lstm") against its plain versions on the card:
+    float32 at [N=6, B=4, H=128], then bf16 at the main path's tiers
+    (N in tiers, batch b, width h), each timed.  Returns {"fwd"|"bwd":
+    {"err", "rel_bf16", "ms", "plain", "bound", "lib", "by"}}: "err" from
+    the float32 check, "rel_bf16" the worst bf16 error over max|plain|,
+    times averaged over the tiers (one launch of each per tier per train
+    step); or raises SmokeFailure."""
+    sp = SEQ[cell]
+    name = f"{cell}_sequence"
+    fwd, bwd = getattr(rt, f"{name}_fwd"), getattr(rt, f"{name}_bwd")
+    bwd_plain = getattr(rt, f"{name}_bwd_plain")
+    tag = f"{sp['kernel']} {name}"
     # float32, small: the same values up to the order of float32 sums
-    args, dhs, dhf = gru_inputs(torch, dev, 6, 4, 128, 10)
-    got = rt.gru_sequence_fwd(*args, "float32")
-    want = rt.gru_sequence_fwd_plain(*args, "float32")
+    fargs, bargs, want, _, _ = seq_args(torch, dev, rt, cell, 6, 4, 128, 10,
+                                        "float32")
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for name, g, w in zip(FWD_OUT, got, want):
+    for out, g, w in zip(sp["fwd_out"], fwd(*fargs), want):
         err = (g - w).abs().max().item()
         errs["fwd"] = max(errs["fwd"], err)
-        require(err <= 1e-5, f"gru_sequence_fwd f32 {name}: {err} > 1e-5")
-    bargs = (args[0], args[1], args[2], args[4], want[0], want[2], want[3],
-             dhs, dhf, "float32")
-    for name, g, w in zip(BWD_OUT, rt.gru_sequence_bwd(*bargs),
-                          rt.gru_sequence_bwd_plain(*bargs)):
+        require(err <= 1e-5, f"{name}_fwd f32 {out}: {err} > 1e-5")
+    for out, g, w in zip(sp["bwd_out"], bwd(*bargs), bwd_plain(*bargs)):
         err = (g - w).abs().max().item()
-        # dW sums B*N terms: 1e-5 of its largest value on top of 1e-5
-        tol = 1e-5 + (1e-5 * w.abs().max().item() if name[:2] == "dw"
+        # dW and db sum B*N terms: 1e-5 of their largest value on top
+        tol = 1e-5 + (1e-5 * w.abs().max().item() if out[:2] in ("dw", "db")
                       else 0.0)
         errs["bwd"] = max(errs["bwd"], err)
-        require(err <= tol, f"gru_sequence_bwd f32 {name}: {err} > {tol}")
-    print(f"K4 gru_sequence f32 [N=6, B=4, H=128]: forward max err "
+        require(err <= tol, f"{name}_bwd f32 {out}: {err} > {tol}")
+    print(f"{tag} f32 [N=6, B=4, H=128]: forward max err "
           f"{errs['fwd']:.3g}, backward {errs['bwd']:.3g} (bound 1e-5; "
-          "dW 1e-5 + 1e-5 * max|dW|)")
+          "dW, db 1e-5 + 1e-5 * max)")
     stats = {d: {"err": errs[d], "rel_bf16": 0.0, "ms": 0.0, "plain": 0.0,
                  "bound": 0.0, "lib": 0.0, "by": {}} for d in ("fwd", "bwd")}
-    for n in (64, 16):
-        b, h = BATCH, 1024
-        args, dhs, dhf = gru_inputs(torch, dev, n, b, h, 11 + n)
-        got = rt.gru_sequence_fwd(*args, "bfloat16")
-        want = rt.gru_sequence_fwd_plain(*args, "bfloat16")
-        bargs = (args[0], args[1], args[2], args[4], want[0], want[2],
-                 want[3], dhs, dhf, "bfloat16")
-        gotb = rt.gru_sequence_bwd(*bargs)
-        wantb = rt.gru_sequence_bwd_plain(*bargs)
-        again = rt.gru_sequence_bwd(*bargs)
+    for n in tiers:
+        fargs, bargs, want, ins, douts = seq_args(
+            torch, dev, rt, cell, n, b, h, 11 + n, "bfloat16")
+        got = fwd(*fargs)
+        gotb = bwd(*bargs)
+        wantb = bwd_plain(*bargs)
+        again = bwd(*bargs)
         torch.cuda.synchronize()
         # bf16: a float32 sum taken in another order can land on the other
         # side of a bf16 rounding boundary and move a stored value by one
         # ulp, which the recurrence carries on; the bound is two bf16 ulps
         # of each output's largest value, 2**-7 * max|want|
         rel = []
-        for d, name, g, w in (
-                [("fwd",) + o for o in zip(FWD_OUT, got, want)]
-                + [("bwd",) + o for o in zip(BWD_OUT, gotb, wantb)]):
+        for d, out, g, w in (
+                [("fwd",) + o for o in zip(sp["fwd_out"], got, want)]
+                + [("bwd",) + o for o in zip(sp["bwd_out"], gotb, wantb)]):
             r = ((g.float() - w.float()).abs().max()
                  / w.float().abs().max()).item()
-            rel.append(f"{name} {r:.2g}")
+            rel.append(f"{out} {r:.2g}")
             stats[d]["rel_bf16"] = max(stats[d]["rel_bf16"], r)
-            require(r <= 2 ** -7, f"gru_sequence bf16 N={n} {name}: {r} "
-                    "of max|want| > 2**-7")
+            require(r <= 2 ** -7, f"{name} bf16 N={n} {out}: {r} of "
+                    "max|want| > 2**-7")
         require(all(torch.equal(a, c) for a, c in zip(gotb, again)),
-                "gru_sequence_bwd is not deterministic")
-        fms, fwall = device_ms(torch, lambda: rt.gru_sequence_fwd(
-            *args, "bfloat16"), 5)
-        bms, bwall = device_ms(torch, lambda: rt.gru_sequence_bwd(*bargs), 5)
-        fpl, _ = device_ms(torch, lambda: rt.gru_sequence_fwd_plain(
-            *args, "bfloat16"), 1)
-        bpl, _ = device_ms(torch, lambda: rt.gru_sequence_bwd_plain(*bargs),
-                           1)
-        # the yardstick: cuDNN's GRU (r, z, n; b_hn inside r*), weights
-        # transposed, bf16; never called by the port
-        x, h0, wih, bih, whh, bhh = args
-        gru = torch.nn.GRU(h, h).to(dev, torch.bfloat16)
+                f"{name}_bwd is not deterministic")
+        fms, fwall = device_ms(torch, lambda: fwd(*fargs), 5)
+        bms, bwall = device_ms(torch, lambda: bwd(*bargs), 5)
+        fpl, _ = device_ms(torch, lambda: getattr(
+            rt, f"{name}_fwd_plain")(*fargs), 1)
+        bpl, _ = device_ms(torch, lambda: bwd_plain(*bargs), 1)
+        # the yardstick: cuDNN's GRU (r, z, n; b_hn inside r*) or LSTM
+        # (i, f, g, o), weights transposed, bf16; never called by the port
+        x, h0, c0, wih, bih, whh, bhh = ins
+        lib = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(h, h).to(
+            dev, torch.bfloat16)
         with torch.no_grad():
-            gru.weight_ih_l0.copy_(wih.T)
-            gru.weight_hh_l0.copy_(whh.T)
-            gru.bias_ih_l0.copy_(bih)
-            gru.bias_hh_l0.copy_(bhh)
-        gru.flatten_parameters()
+            lib.weight_ih_l0.copy_(wih.T)
+            lib.weight_hh_l0.copy_(whh.T)
+            lib.bias_ih_l0.copy_(bih)
+            lib.bias_hh_l0.copy_(bhh)
+        lib.flatten_parameters()
         xl = x.to(torch.bfloat16).requires_grad_(True)
-        h0l = h0.to(torch.bfloat16)[None]
-        douts = [dhs.to(torch.bfloat16), dhf.to(torch.bfloat16)[None]]
+        s0 = h0.to(torch.bfloat16)[None]
+        if cell == "lstm":
+            s0 = (s0, c0.to(torch.bfloat16)[None])
+        dl = [d.to(torch.bfloat16) if i == 0 else d.to(torch.bfloat16)[None]
+              for i, d in enumerate(douts)]
+
+        def outs(out):
+            seq, fin = out
+            return [seq] + (list(fin) if cell == "lstm" else [fin])
 
         def lib_fwd():
             with torch.no_grad():
-                return gru(xl, h0l)
+                return lib(xl, s0)
 
         def lib_fwd_bwd():
-            torch.autograd.backward(list(gru(xl, h0l)), douts)
+            torch.autograd.backward(outs(lib(xl, s0)), dl)
 
         lib_err = (lib_fwd()[0].float() - got[0][1:].float()).abs().max()
         lf, _ = device_ms(torch, lib_fwd, 5)
         lfb, _ = device_ms(torch, lib_fwd_bwd, 5)
-        (fb, fby), (bb, bby) = gru_bounds(n, b, h)
-        print(f"K4 gru_sequence bf16 [N={n}, B={b}, H={h}]: "
+        (fb, fby), (bb, bby) = seq_bounds(cell, n, b, h)
+        g = sp["gates"]
+        print(f"{tag} bf16 [N={n}, B={b}, H={h}]: "
               f"{', '.join(rel)} of max (bound 2**-7), deterministic; "
               f"forward {fms * 1e3:.1f} us (wall {fwall * 1e3:.1f} us), "
               f"plain {fpl * 1e3:.1f} us, cuDNN {lf * 1e3:.1f} us, bound "
@@ -260,78 +329,29 @@ def check_gru_sequence(torch, dev, rt):
               f"cuDNN forward+backward {lfb * 1e3:.1f} us (backward share "
               f"{(lfb - lf) * 1e3:.1f} us), bound {bb * 1e3:.1f} us ({bby}; "
               f"the Pallas kernel's 6 products: "
-              f"{n * 6 * 2.0 * b * h * 3 * h / PEAK_BF16 * 1e6:.1f} us); "
+              f"{n * 6 * 2.0 * b * h * g * h / PEAK_BF16 * 1e6:.1f} us); "
               f"cuDNN h_seq vs ours max {lib_err.item():.3g}")
-        for d, ms, pl, lib, bd, by in (("fwd", fms, fpl, lf, fb, fby),
-                                       ("bwd", bms, bpl, lfb - lf, bb, bby)):
+        for d, ms, pl, lb, bd, by in (("fwd", fms, fpl, lf, fb, fby),
+                                      ("bwd", bms, bpl, lfb - lf, bb, bby)):
             st = stats[d]
-            for key, val in (("ms", ms), ("plain", pl), ("lib", lib),
+            for key, val in (("ms", ms), ("plain", pl), ("lib", lb),
                              ("bound", bd)):
-                st[key] += val / 2
+                st[key] += val / len(tiers)
             st["by"][by] = st["by"].get(by, 0) + 1
     return stats
 
 
-def train_path(torch, dev, cfg, params, card):
-    """The flagship's TBPTT train step on the kernel route: 2 warm steps,
-    5 timed; launch counts, NLL, the profiler split, and one step's NLL
-    and gradients against the plain scan route.  Returns the K4 launch
-    counts of the timed steps, or raises SmokeFailure."""
-    import dataclasses
-    import math
-
-    from samplernn_pase_tpu_torch import graft_entry
-    from samplernn_pase_tpu_torch.models import samplernn
-    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
-    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
-    from samplernn_pase_tpu_torch.train.optim import make_optimizer
-    from samplernn_pase_tpu_torch.train.trainer import make_train_step
-    from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
-
-    b, t = BATCH, SEQ_LEN
-    gen = torch.Generator().manual_seed(3)
-    x = torch.randint(0, cfg.q_levels, (b, cfg.lookback + t), generator=gen,
-                      dtype=torch.int32).to(dev)
-    y = x[:, cfg.lookback:]
-    r = torch.zeros(b, device=dev)
-    tx = make_optimizer(1e-3, 1.0)
-    step = make_train_step(cfg, tx)
-    p, opt = params, tx.init(params)
-    hid = samplernn.initial_state(params, cfg, b)
-    nlls = []
-    t0 = time.perf_counter()
-    for _ in range(2):
-        p, opt, hid, nll = step(p, opt, hid, x, y, r)
-        nlls.append(nll)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    kdec.reset_launches()
-    rt.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        p, opt, hid, nll = step(p, opt, hid, x, y, r)
-        nlls.append(nll)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 5
-    launches = dict(rt.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train path launches in 5 steps: {launches}; decode kernels "
-          f"{dict(kdec.LAUNCHES)}")
-    require(launches == {"gru_sequence_fwd": 10, "gru_sequence_bwd": 10},
-            f"K4 launches {launches}, expected 2 of each per step")
-    nll_vals = [v.item() for v in nlls]
-    print("train NLL per step (bits): " + ", ".join(
-        f"{v:.4f}" for v in nll_vals))
-    require(all(math.isfinite(v) for v in nll_vals), "non-finite NLL")
-    require(nll_vals[-1] < nll_vals[0], "the NLL did not fall")
-    # where a step's time goes
-    times = kernel_times(torch, lambda: step(p, opt, hid, x, y, r))
-    groups = {"gru_sequence (K4)": [0.0, 0], "library products": [0.0, 0],
+def profile_step(torch, fn, step_s: float):
+    """Where one train step's device time goes (torch.profiler): the
+    sequence kernels (K4/K5, their GEMMs included), the library products
+    and the rest, with the idle share of an unprofiled step of step_s."""
+    times = kernel_times(torch, fn)
+    seq = "sequence kernels (K4/K5)"
+    groups = {seq: [0.0, 0], "library products": [0.0, 0],
               "other": [0.0, 0]}
     for key, (ms, cnt) in times.items():
         low = key.lower()
-        g = ("gru_sequence (K4)" if "gruseq_" in low else
+        g = (seq if "seq_" in low else
              "library products" if any(w in low for w in (
                  "gemm", "xmma", "cutlass", "conv", "cudnn", "wgrad",
                  "dgrad")) else "other")
@@ -345,24 +365,19 @@ def train_path(torch, dev, cfg, params, card):
                       groups.items()))
     print("  top kernels: " + "; ".join(
         f"{k[:60]} {ms:.2f} ms/{c}" for k, (ms, c) in top))
-    # orientation: the products of one step, 3x the forward's
-    e, hd, f1 = cfg.embed_dim, cfg.dim, cfg.frame_sizes[0]
-    fwd_flops = 2.0 * b * t * (f1 * e * hd + hd * hd + hd * cfg.q_levels)
-    fwd_flops += 2.0 * b * (t + f1 - 1) * cfg.q_levels * e
-    for k, span in enumerate(cfg.tier_spans):
-        nf = t // span
-        fwd_flops += 2.0 * b * nf * (span * hd + 2 * hd * 3 * hd
-                                     + hd * cfg.frame_sizes[k] * hd)
-    print(f"train step, flagship B={b}, seq_len {t}, kernel route: "
-          f"{step_s * 1e3:.2f} ms per step ({warm:.2f} s for the 2 warm "
-          f"steps), {b * t / f1 / step_s:,.0f} bottom frames/s, "
-          f"{b * t / step_s:,.0f} samples/s, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; products "
-          f"{3 * fwd_flops / 1e12:.2f} TFLOP, bound "
-          f"{3 * fwd_flops / PEAK_BF16 * 1e3:.2f} ms at {PEAK_BF16 / 1e12:.0f} "
-          f"TFLOP/s; on {card}")
 
-    # one step's NLL and gradients against the plain scan route
+
+def check_routes(torch, dev, cfg, params, x, y):
+    """One step's NLL and gradients on the kernel route against the plain
+    scan route (pallas_train_rnn=False), in float32 and in bf16; raises
+    SmokeFailure beyond the bounds below."""
+    import dataclasses
+
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
+
+    b = x.shape[0]
+
     def grads(c, p0=params):
         q = tree_map(lambda a: a.detach().requires_grad_(True), p0)
         nll, _ = samplernn.loss_fn(q, c, x, y,
@@ -406,10 +421,10 @@ def train_path(torch, dev, cfg, params, card):
     require(worst <= 3 * floor,
             "a float32 gradient differs from the scan route by more than "
             "its conditioning allows")
-    # bf16: the reference's VJP rounds h_{t-1}, dh_seq and the gate
-    # gradients to bf16 (2**-9 relative each) where the scan's autograd
-    # keeps float32, inside a 16- to 64-step chain; where a rounded
-    # h_{t-1} enters the difference h_{t-1} - n and a gradient sums terms
+    # bf16: the reference's VJPs round h_{t-1}, dh_seq and the gate
+    # gradients (and K5's c_seq) to bf16 (2**-9 relative each) where the
+    # scan's autograd keeps float32, inside a chain of up to 64 steps;
+    # where rounded values enter a difference and a gradient sums terms
     # that cancel, a whole gradient moves by a few percent (about 0.04 at
     # tier 1's W_hh of the flagship on an H100).  Bounds: NLL 0.01 bits,
     # each gradient 10% in relative norm; a wrong gradient is off by O(1)
@@ -419,11 +434,387 @@ def train_path(torch, dev, cfg, params, card):
           f"relative norm {worst:.4f} at {where} (bound 0.1)")
     require(abs(nk - np_) <= 0.01, "NLL differs from the scan route")
     require(worst <= 0.1, "a gradient differs from the scan route")
+
+
+def train_path(torch, dev, cfg, params, card):
+    """The flagship's TBPTT train step on the kernel route: 2 warm steps,
+    5 timed; launch counts, NLL, the profiler split, and one step's NLL
+    and gradients against the plain scan route.  Returns the K4 launch
+    counts of the timed steps, or raises SmokeFailure."""
+    import math
+
+    from samplernn_pase_tpu_torch import graft_entry
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    from samplernn_pase_tpu_torch.train.optim import make_optimizer
+    from samplernn_pase_tpu_torch.train.trainer import make_train_step
+
+    b, t = BATCH, SEQ_LEN
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(0, cfg.q_levels, (b, cfg.lookback + t), generator=gen,
+                      dtype=torch.int32).to(dev)
+    y = x[:, cfg.lookback:]
+    r = torch.zeros(b, device=dev)
+    tx = make_optimizer(1e-3, 1.0)
+    step = make_train_step(cfg, tx)
+    p, opt = params, tx.init(params)
+    hid = samplernn.initial_state(params, cfg, b)
+    nlls = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        p, opt, hid, nll = step(p, opt, hid, x, y, r)
+        nlls.append(nll)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kdec.reset_launches()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        p, opt, hid, nll = step(p, opt, hid, x, y, r)
+        nlls.append(nll)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    launches = dict(rt.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train path launches in 5 steps: {launches}; decode kernels "
+          f"{dict(kdec.LAUNCHES)}")
+    require(launches == {"gru_sequence_fwd": 10, "gru_sequence_bwd": 10,
+                         "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0},
+            f"K4 launches {launches}, expected 2 of each per step")
+    nll_vals = [v.item() for v in nlls]
+    print("train NLL per step (bits): " + ", ".join(
+        f"{v:.4f}" for v in nll_vals))
+    require(all(math.isfinite(v) for v in nll_vals), "non-finite NLL")
+    require(nll_vals[-1] < nll_vals[0], "the NLL did not fall")
+    profile_step(torch, lambda: step(p, opt, hid, x, y, r), step_s)
+    # orientation: the products of one step, 3x the forward's
+    e, hd, f1 = cfg.embed_dim, cfg.dim, cfg.frame_sizes[0]
+    fwd_flops = 2.0 * b * t * (f1 * e * hd + hd * hd + hd * cfg.q_levels)
+    fwd_flops += 2.0 * b * (t + f1 - 1) * cfg.q_levels * e
+    for k, span in enumerate(cfg.tier_spans):
+        nf = t // span
+        fwd_flops += 2.0 * b * nf * (span * hd + 2 * hd * 3 * hd
+                                     + hd * cfg.frame_sizes[k] * hd)
+    print(f"train step, flagship B={b}, seq_len {t}, kernel route: "
+          f"{step_s * 1e3:.2f} ms per step ({warm:.2f} s for the 2 warm "
+          f"steps), {b * t / f1 / step_s:,.0f} bottom frames/s, "
+          f"{b * t / step_s:,.0f} samples/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; products "
+          f"{3 * fwd_flops / 1e12:.2f} TFLOP, bound "
+          f"{3 * fwd_flops / PEAK_BF16 * 1e3:.2f} ms at {PEAK_BF16 / 1e12:.0f} "
+          f"TFLOP/s; on {card}")
+    check_routes(torch, dev, cfg, params, x, y)
     fn, eargs = graft_entry.entry()
     enll, _ = fn(*eargs)
     require(eargs[2].is_cuda and math.isfinite(enll.item()),
             "graft_entry.entry() did not give a finite NLL on the card")
     print(f"graft_entry.entry() on the card: NLL {enll.item():.4f} bits")
+    return launches
+
+
+def k2_cases(torch, dev, gen, cfg, params, weights, b: int, n_top: int):
+    """K2's distinct products on a decode path at its shapes, on random
+    activations from gen (drawn h, upper, window, x first, as the
+    flagship's checks always drew them): per tier its input (levels, +
+    upper below the top), the input gates, the recurrent gates (+ xg as
+    ``add`` for an LSTM) and the upsample; and the f1 products that fold
+    the embedding into the MLP's first layer in float32 (prepare_mlp, run
+    once per make_generator request).  Returns ([(name, a, w, bias, add,
+    levels_q, launches in the path's run of n_top top frames)], h, the
+    window)."""
+    from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
+
+    q, hd, f1 = cfg.q_levels, cfg.dim, cfg.frame_sizes[0]
+    h = torch.randn(b, hd, device=dev, generator=gen) * 0.5
+    upper = torch.randn(b, hd, device=dev, generator=gen)
+    win = torch.randint(0, q, (b, cfg.lookback), device=dev, generator=gen,
+                        dtype=torch.int32)
+    x = torch.randn(b, hd, device=dev, generator=gen)
+    lstm = cfg.rnn_type == "lstm"
+    xg = torch.randn(b, 4 * hd, device=dev, generator=gen) if lstm else None
+    cases = []
+    for k, (tw, span) in enumerate(zip(weights["tiers"], cfg.tier_spans)):
+        n = n_top * (cfg.lookback // span)
+        top = k == cfg.n_tiers - 1
+        cases += [
+            (f"tier{k} input", win[:, -span:], tw["w_in"], tw["b_in"],
+             None if top else upper, q, n),
+            (f"tier{k} gate x", x, tw["w_ih"], tw["b_ih"], None, 0, n),
+            (f"tier{k} gate h" + (" +xg" if lstm else ""), h, tw["w_hh"],
+             tw["b_hh"], xg, 0, n),
+            (f"tier{k} upsample", h, tw["w_up"],
+             None if k == 0 else tw["b_up_flat"], None, 0, n),
+        ]
+    mlp = params["mlp"]
+    embed = mlp["embed"].float().contiguous()
+    e = embed.shape[1]
+    w_in = wnorm.resolve(mlp["w_in"]).float()[:e].contiguous()
+    cases.append(("mlp embed fold", embed, w_in, None, None, 0, f1))
+    return cases, h, win
+
+
+def check_gemm(torch, dev, kdec, cases, path: str):
+    """K2 against its plain version on each case of ``k2_cases``, timed
+    beside its plain version, torch.addmm and its bound.  Returns the
+    path's {"err", "launches", and the launch-weighted mean "ms", "plain",
+    "lib", "bound", "by": {bound_by: launches}}, or raises SmokeFailure."""
+    st = {"err": 0.0, "launches": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
+          "bound": 0.0, "by": {}}
+    for name, a, w, bias, add, lq, runs in cases:
+        got = kdec.gemm_bias(a, w, bias, add, levels_q=lq)
+        want = kdec.gemm_bias_plain(a, w, bias, add, levels_q=lq)
+        torch.cuda.synchronize()
+        m, k = a.shape
+        n = w.shape[1]
+        af = (a.float() / (lq / 2) - 1) if lq else a
+        scale = torch.matmul(af.to(w.dtype).float().abs(),
+                             w.float().abs()).max().item()
+        tol = 2 * k * 2.0 ** -24 * scale + 1e-6 * (1 + want.abs().max().item())
+        err = (got - want).abs().max().item()
+        ms, wall = device_ms(torch, lambda: kdec.gemm_bias(
+            a, w, bias, add, levels_q=lq), 20)
+        pms, _ = device_ms(torch, lambda: kdec.gemm_bias_plain(
+            a, w, bias, add, levels_q=lq), 20)
+        a_lib = af.to(w.dtype)
+        bias_lib = (bias if bias is not None
+                    else torch.zeros(n, device=dev)).to(w.dtype)
+        if add is None:
+            lms, _ = device_ms(torch, lambda: torch.addmm(bias_lib, a_lib, w),
+                               20)
+        else:
+            # (A @ W + bias) + add as one library call: addmm with the
+            # bias folded into add
+            add_lib = (add + bias).to(w.dtype)
+            lms, _ = device_ms(torch, lambda: torch.addmm(add_lib, a_lib, w),
+                               20)
+        nbytes = (a.numel() * 4 + w.numel() * w.element_size()
+                  + (n * 4 if bias is not None else 0)
+                  + (m * n * 4 if add is not None else 0) + m * n * 4)
+        bms, by = bound(nbytes, 2.0 * m * n * k,
+                        PEAK_BF16 if w.dtype == torch.bfloat16 else PEAK_F32)
+        print(f"K2 {path} {name:16s} [{m},{k}]@[{k},{n}] {w.dtype} err "
+              f"{err:.3g} (bound {tol:.3g}) {ms * 1e3:.1f} us (wall per call "
+              f"{wall * 1e3:.1f} us), plain {pms * 1e3:.1f} us, addmm "
+              f"{lms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}); "
+              f"{runs} launches in the path's run")
+        require(err <= tol, f"gemm_bias {path} {name}: max abs err {err} > "
+                f"{tol}")
+        st["err"] = max(st["err"], err)
+        st["launches"] += runs
+        for key, val in (("ms", ms), ("plain", pms), ("lib", lms),
+                         ("bound", bms)):
+            st[key] += val * runs
+        st["by"][by] = st["by"].get(by, 0) + runs
+    for key in ("ms", "plain", "lib", "bound"):
+        st[key] /= st["launches"]
+    return st
+
+
+def check_lstm_gates(torch, dev, kdec, b: int, hdim: int):
+    """K6 against its plain version at config 2's decode shape, timed.
+    Returns (err, ms, plain_ms, lib_ms, bound_ms, bound_by), or raises
+    SmokeFailure."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.randn(b, 4 * hdim, device=dev, generator=gen)
+    c = torch.randn(b, hdim, device=dev, generator=gen)
+    err = max((a - w).abs().max().item() for a, w in zip(
+        kdec.lstm_gates(g, c), kdec.lstm_gates_plain(g, c)))
+    require(err <= 2e-6, f"lstm_gates: max abs err {err} > 2e-6")
+    ms, wall = device_ms(torch, lambda: kdec.lstm_gates(g, c), 50)
+    pms, _ = device_ms(torch, lambda: kdec.lstm_gates_plain(g, c), 50)
+    # the library's fused LSTM cell: i, f, g, o from input + hidden gates
+    # (here g and zeros); timed as a yardstick, never called by the port
+    zeros = torch.zeros_like(g)
+    lib = torch.ops.aten._thnn_fused_lstm_cell(g, zeros, c)
+    lib_err = max((a - w).abs().max().item() for a, w in zip(
+        lib[:2], kdec.lstm_gates_plain(g, c)))
+    lms, _ = device_ms(torch, lambda: torch.ops.aten._thnn_fused_lstm_cell(
+        g, zeros, c), 50)
+    bd, by = bound(4.0 * (4 * b * hdim + b * hdim + 2 * b * hdim),
+                   20.0 * b * hdim, PEAK_F32)
+    print(f"K6 lstm_gates [{b},{hdim}] err {err:.3g} (bound 2e-06) "
+          f"{ms * 1e3:.1f} us (wall per call {wall * 1e3:.1f} us), plain "
+          f"{pms * 1e3:.1f} us, _thnn_fused_lstm_cell {lms * 1e3:.1f} us "
+          f"(err {lib_err:.3g}), bound {bd * 1e3:.2f} us ({by})")
+    return err, ms, pms, lms, bd, by
+
+
+def c2_generation(torch, dev, exp, params, weights, k2_launches: int, card):
+    """Config 2's generation on the kernel route (K1, K2, K6) at B=128 on
+    params and their kernel weights: greedy, sampled at the config's
+    temperature and one make_generator request; launch counts (K2's must
+    be k2_launches, the count phase 2 weighted its cases by), levels,
+    rescoring and the profiler split.  Returns the decode kernels' launch
+    counts, or raises SmokeFailure."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+
+    cfg, temp = exp.model, exp.generate.temperature
+    b, q, n = BATCH, cfg.q_levels, C2_LENGTH
+    kdec.reset_launches()
+    t0 = time.perf_counter()
+    greedy = tgen.generate_levels(params, cfg, b, n, None, seed=0,
+                                  device=dev, kernel_weights=weights)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampled = tgen.generate_levels(params, cfg, b, n, temp, seed=1,
+                                   device=dev, kernel_weights=weights)
+    torch.cuda.synchronize()
+    t_sampled = time.perf_counter() - t0
+    frame = tgen.make_generator(cfg, b, n, temp, use_kernels="frame",
+                                device=dev)(params, seed=1)
+    torch.cuda.synchronize()
+    launches = dict(kdec.LAUNCHES)
+    print(f"config 2 generation launches (3 requests): {launches}")
+    n_top = n // cfg.lookback
+    per_top = {"frame_decode": cfg.lookback // cfg.frame_sizes[0],
+               "lstm_gates": 1 + cfg.frame_sizes[2]
+               + cfg.lookback // cfg.frame_sizes[0]}
+    for name, k in per_top.items():
+        require(launches[name] == 3 * n_top * k,
+                f"{name}: {launches[name]} launches, expected "
+                f"{3 * n_top * k}")
+    require(launches["gemm_bias"] == k2_launches
+            and launches["gru_gates"] == 0,
+            f"config 2 launches {launches}, expected gemm_bias "
+            f"{k2_launches} and gru_gates 0")
+    for name, lv in (("greedy", greedy), ("sampled", sampled),
+                     ("frame", frame)):
+        require(lv.shape == (b, n) and lv.dtype == torch.int32,
+                f"config 2 {name}: shape {tuple(lv.shape)} {lv.dtype}")
+        require(lv.min().item() >= 0 and lv.max().item() < q,
+                f"config 2 {name}: levels outside [0, {q})")
+    require(torch.equal(frame, sampled),
+            "config 2: make_generator(use_kernels='frame') differs from "
+            "the same sampled request through generate_levels")
+    agree_g = tgen.rescore(params, cfg, greedy[:, :C2_RESCORE], None,
+                           seed=0)
+    agree_s = tgen.rescore(params, cfg, sampled[:, :C2_RESCORE], temp,
+                           seed=1)
+    print(f"config 2 rescoring agreement (plain per-step modules, bf16, "
+          f"first {C2_RESCORE} samples): greedy {agree_g:.4f}, sampled "
+          f"{agree_s:.4f}; make_generator's request equal to "
+          "generate_levels'")
+    require(min(agree_g, agree_s) >= 0.99,
+            "config 2 rescoring agreement below 0.99")
+    t0 = time.perf_counter()
+    times = kernel_times(torch, lambda: tgen.generate_levels(
+        params, cfg, b, n, temp, seed=1, device=dev,
+        kernel_weights=weights))
+    wall = (time.perf_counter() - t0) * 1e3
+    groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
+              "lstm_gates": [0.0, 0], "other": [0.0, 0]}
+    for key, (t, cnt) in times.items():
+        g = next((g for g in groups if g in key), "other")
+        groups[g][0] += t
+        groups[g][1] += cnt
+    busy = sum(t for t, _ in groups.values())
+    print(f"config 2 profiled sampled request: wall {wall:.1f} ms "
+          f"(profiler on), device busy {busy:.1f} ms ({busy / n_top:.2f} ms "
+          f"per top frame), idle share {1 - busy / (t_sampled * 1e3):.3f} "
+          f"of the unprofiled request's {t_sampled * 1e3:.1f} ms; "
+          + ", ".join(f"{g} {t:.1f} ms/{c}" for g, (t, c) in
+                      groups.items()))
+    # the path's bound per top frame: the sum of each launch's bound (K2:
+    # A, W, bias, add and C; K6: g, c and h', c'; K1: every W' row, which
+    # a B=128 frame's windows touch, as phase 2's K1 check counts)
+    hd, f1 = cfg.dim, cfg.frame_sizes[0]
+
+    def k2(k, n, add):
+        return bound(b * k * 4 + k * n * 2 + n * 4 + b * n * 4 * (1 + add),
+                     2.0 * b * k * n, PEAK_BF16)[0]
+
+    k1 = bound(2 * b * f1 * 4 + b * f1 * hd * 4 + f1 * hd * 4
+               + f1 * q * hd * 2 + (hd * hd + hd * q) * 2
+               + (2 * hd + q) * 4, 2.0 * b * f1 * (hd * hd + hd * q),
+               PEAK_BF16)[0]
+    top_bound, top_launches = 0.0, 0
+    for k, span in enumerate(cfg.tier_spans):
+        # input (+ upper below the top), xg, hg + xg, upsample, K6 (, K1)
+        step = (k2(span, hd, k < cfg.n_tiers - 1) + k2(hd, 4 * hd, False)
+                + k2(hd, 4 * hd, True) + k2(hd, cfg.frame_sizes[k] * hd, False)
+                + bound(4.0 * 7 * b * hd, 20.0 * b * hd, PEAK_F32)[0]
+                + (k1 if k == 0 else 0.0))
+        top_bound += step * (cfg.lookback // span)
+        top_launches += (5 + (k == 0)) * (cfg.lookback // span)
+    print(f"config 2 generation path bound: {top_bound:.3f} ms per top frame "
+          f"(the sum of its {top_launches} launches' bounds)")
+    print(f"config 2 generation, B={b}, {n} samples: greedy "
+          f"{b * n / t_greedy:,.0f} samples/s ({t_greedy:.3f} s), sampled "
+          f"(T={temp}) {b * n / t_sampled:,.0f} samples/s "
+          f"({t_sampled:.3f} s); {t_sampled * 1e3 / n_top:.2f} ms per top "
+          f"frame of {cfg.lookback} samples; on {card}")
+    return launches
+
+
+def c2_train_path(torch, dev, exp, card):
+    """Config 2's TBPTT training on the kernel route through
+    make_multi_train_step at the config's steps_per_call: one warm call,
+    one timed; launch counts, NLL, the profiler split of one step and one
+    step against the scan route.  Returns the K5 launch counts of the
+    timed call, or raises SmokeFailure."""
+    import math
+
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    from samplernn_pase_tpu_torch.train.optim import make_optimizer
+    from samplernn_pase_tpu_torch.train.trainer import (
+        make_multi_train_step, make_train_step)
+
+    cfg, tr = exp.model, exp.train
+    k, b, t = tr.steps_per_call, tr.batch_size, tr.seq_len
+    params = samplernn.init_params(torch.Generator().manual_seed(6), cfg,
+                                   dev)
+    gen = torch.Generator().manual_seed(7)
+    xs = torch.randint(0, cfg.q_levels, (k, b, cfg.lookback + t),
+                       generator=gen, dtype=torch.int32).to(dev)
+    ys = xs[:, :, cfg.lookback:]
+    rs = torch.zeros(k, b, device=dev)
+    tx = make_optimizer(tr.lr, tr.grad_clip)
+    multi = make_multi_train_step(cfg, tx)
+    t0 = time.perf_counter()
+    p, opt, hid, nll0 = multi(params, tx.init(params),
+                              samplernn.initial_state(params, cfg, b), xs,
+                              ys, rs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    p, opt, hid, nll1 = multi(p, opt, hid, xs, ys, rs)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / k
+    launches = dict(rt.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"config 2 train launches in one call of {k} steps: {launches}")
+    want = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0,
+            "lstm_sequence_fwd": cfg.n_tiers * k,
+            "lstm_sequence_bwd": cfg.n_tiers * k}
+    require(launches == want,
+            f"K5 launches {launches}, expected {cfg.n_tiers} of each per "
+            "step")
+    nll_vals = torch.cat([nll0, nll1]).tolist()
+    print("config 2 train NLL per step (bits): " + ", ".join(
+        f"{v:.4f}" for v in nll_vals) + f"; mean of the first pass over "
+        f"the {k} batches {nll0.mean().item():.4f}, of the second "
+        f"{nll1.mean().item():.4f}")
+    require(all(math.isfinite(v) for v in nll_vals), "non-finite NLL")
+    require(nll1.mean().item() < nll0.mean().item(),
+            "config 2: the NLL did not fall from the first pass over the "
+            "batches to the second")
+    step = make_train_step(cfg, tx)
+    profile_step(torch, lambda: step(p, opt, hid, xs[0], ys[0], rs[0]),
+                 step_s)
+    f1 = cfg.frame_sizes[0]
+    print(f"config 2 train step, B={b}, seq_len {t}, kernel route, "
+          f"steps_per_call {k}: {step_s * 1e3:.2f} ms per step ({warm:.2f} "
+          f"s for the warm call), {b * t / f1 / step_s:,.0f} bottom "
+          f"frames/s, {b * t / step_s:,.0f} samples/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; on {card}")
+    check_routes(torch, dev, cfg, params, xs[0], ys[0])
     return launches
 
 
@@ -436,7 +827,8 @@ def main() -> int:
                     f"{Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     from samplernn_pase_tpu_torch import generate as tgen
-    from samplernn_pase_tpu_torch.config import SampleRNNConfig
+    from samplernn_pase_tpu_torch.config import (
+        SampleRNNConfig, load_config, preset)
     from samplernn_pase_tpu_torch.models import samplernn
     from samplernn_pase_tpu_torch.ops.kernels import _build
     from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
@@ -458,9 +850,28 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} "
           "sources (parallel nvcc, sm_90a)")
     for name, text in logs.items():
+        regs, spills, fn = [], [], ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = kernel_name(line.split("for", 1)[1].strip())
+            elif "spill stores" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores"):
+                spills.append(f"{fn}: {line.strip()}")
+            elif "Used" in line and "registers" in line:
+                regs.append(int(line.split("Used")[1].split()[0]))
+        print(f"  {name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}; spills: "
+              + ("; ".join(spills) if spills else "none"))
+    # config 2 (the 3-tier LSTM): the preset's model (mlp_hidden 0 means
+    # dim), the JSON's training and generation settings
+    import dataclasses
+    exp2 = load_config(ROOT / "configs" / "c2_3tier_lstm.json")
+    model2 = preset("c2_3tier_lstm").model
+    if dataclasses.replace(exp2.model, mlp_hidden=0) != model2:
+        return fail("configs/c2_3tier_lstm.json and preset('c2_3tier_lstm') "
+                    "disagree on the model")
+    exp2 = dataclasses.replace(exp2, model=model2)
+    c2_tiers = tuple(exp2.train.seq_len // s for s in exp2.model.tier_spans)
 
     # ---- flagship model (random weights from a seed) ----
     cfg = SampleRNNConfig(frame_sizes=(16, 4), dim=1024, embed_dim=256,
@@ -474,67 +885,33 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"flagship params and kernel weights (prepared once per model): "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params2 = samplernn.init_params(torch.Generator().manual_seed(5),
+                                    exp2.model, dev)
+    weights2 = tgen.prepare_weights(params2, exp2.model, dev)
+    torch.cuda.synchronize()
+    print(f"config 2 params and kernel weights: "
+          f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(1)
     t0w = time.perf_counter()
 
-    # ---- 2a. K2 gemm_bias at the main path's shapes ----
-    t0t, t1t = weights["tiers"]
-    h = torch.randn(b, hdim, device=dev, generator=gen) * 0.5
-    upper = torch.randn(b, hdim, device=dev, generator=gen)
-    win = torch.randint(0, q, (b, cfg.lookback), device=dev,
-                        generator=gen, dtype=torch.int32)
-    x_gate = torch.randn(b, hdim, device=dev, generator=gen)
-    # (name, a, w, bias, add, levels_q, launches per top frame)
-    k2_cases = [
-        ("tier0 input", win[:, -f1:], t0t["w_in"], t0t["b_in"], upper, q, 4),
-        ("tier0 gate x", x_gate, t0t["w_ih"], t0t["b_ih"], None, 0, 4),
-        ("tier0 gate h", h, t0t["w_hh"], t0t["b_hh"], None, 0, 4),
-        ("tier0 upsample", h, t0t["w_up"], None, None, 0, 4),
-        ("tier1 input", win, t1t["w_in"], t1t["b_in"], None, q, 1),
-        ("tier1 gate x", x_gate, t1t["w_ih"], t1t["b_ih"], None, 0, 1),
-        ("tier1 gate h", h, t1t["w_hh"], t1t["b_hh"], None, 0, 1),
-        ("tier1 upsample", h, t1t["w_up"], t1t["b_up_flat"], None, 0, 1),
-    ]
-    k2 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
-          "n": 0, "by": {}}
-    for name, a, w, bias, add, lq, per_top in k2_cases:
-        got = kdec.gemm_bias(a, w, bias, add, levels_q=lq)
-        want = kdec.gemm_bias_plain(a, w, bias, add, levels_q=lq)
-        torch.cuda.synchronize()
-        k = a.shape[1]
-        af = (a.float() / (lq / 2) - 1) if lq else a
-        scale = torch.matmul(af.to(w.dtype).float().abs(),
-                             w.float().abs()).max().item()
-        tol = 2 * k * 2.0 ** -24 * scale + 1e-6 * (1 + want.abs().max().item())
-        err = (got - want).abs().max().item()
-        ok = err <= tol
-        ms, wall = device_ms(torch, lambda: kdec.gemm_bias(
-            a, w, bias, add, levels_q=lq), 20)
-        pms, _ = device_ms(torch, lambda: kdec.gemm_bias_plain(
-            a, w, bias, add, levels_q=lq), 20)
-        a_lib = af.to(w.dtype)
-        bias_lib = (bias if bias is not None
-                    else torch.zeros(w.shape[1], device=dev)).to(w.dtype)
-        lms, _ = device_ms(torch, lambda: torch.addmm(bias_lib, a_lib, w),
-                           20)
-        m, n = b, w.shape[1]
-        nbytes = (a.numel() * 4 + w.numel() * w.element_size()
-                  + (n * 4 if bias is not None else 0)
-                  + (m * n * 4 if add is not None else 0) + m * n * 4)
-        bms, by = bound(nbytes, 2.0 * m * n * k, PEAK_BF16)
-        print(f"K2 {name:15s} [{m},{k}]@[{k},{n}] err {err:.3g} "
-              f"(bound {tol:.3g}) {ms * 1e3:.1f} us (wall per call "
-              f"{wall * 1e3:.1f} us), plain "
-              f"{pms * 1e3:.1f} us, addmm {lms * 1e3:.1f} us, bound "
-              f"{bms * 1e3:.2f} us ({by})")
-        if not ok:
-            return fail(f"gemm_bias {name}: max abs err {err} > {tol}")
-        k2["err"] = max(k2["err"], err)
-        for key, val in (("ms", ms), ("plain", pms), ("lib", lms),
-                         ("bound", bms)):
-            k2[key] += val * per_top
-        k2["n"] += per_top
-        k2["by"][by] = k2["by"].get(by, 0) + per_top
+    # ---- 2a. K2 gemm_bias at both decode paths' shapes ----
+    # launches are counted over each path's run in phase 3 / 5: three
+    # requests (two generate_levels, one make_generator, which prepares
+    # the MLP once) of LENGTH / C2_LENGTH samples
+    t0t = weights["tiers"][0]
+    cases, h, win = k2_cases(torch, dev, gen, cfg, params, weights, b,
+                             3 * LENGTH // cfg.lookback)
+    cases2, _, _ = k2_cases(torch, dev,
+                            torch.Generator(device=dev).manual_seed(8),
+                            exp2.model, params2, weights2, b,
+                            3 * C2_LENGTH // exp2.model.lookback)
+    try:
+        k2 = {"flagship": check_gemm(torch, dev, kdec, cases, "flagship"),
+              "c2_3tier_lstm": check_gemm(torch, dev, kdec, cases2,
+                                          "config 2")}
+    except SmokeFailure as err:
+        return fail(str(err))
 
     # ---- 2b. K3 gru_gates ----
     xg = torch.randn(b, 3 * hdim, device=dev, generator=gen)
@@ -627,9 +1004,14 @@ def main() -> int:
           f"plain {pms1 * 1e3:.1f} us, bound "
           f"{b1 * 1e3:.2f} us ({by1}, {rows} W' rows)")
 
-    # ---- 2d. K4 gru_sequence forward and backward ----
+    # ---- 2d-2f. K4 and K5 forward and backward, K6 ----
     try:
-        k4 = check_gru_sequence(torch, dev, rt)
+        k4 = check_sequence(torch, dev, rt, "gru", BATCH,
+                            tuple(SEQ_LEN // s for s in cfg.tier_spans),
+                            cfg.dim)
+        k5 = check_sequence(torch, dev, rt, "lstm", exp2.train.batch_size,
+                            c2_tiers, exp2.model.dim)
+        k6 = check_lstm_gates(torch, dev, kdec, BATCH, exp2.model.dim)
     except SmokeFailure as err:
         return fail(str(err))
     print(f"phase 2 (kernel checks and timing): "
@@ -652,8 +1034,13 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(kdec.LAUNCHES)
     print(f"main path launches: {launches}")
-    if not all(launches.values()):
-        return fail(f"a kernel was not launched on the main path: {launches}")
+    if not all(launches[k] for k in ("frame_decode", "gemm_bias",
+                                     "gru_gates")) or launches["lstm_gates"]:
+        return fail(f"the flagship path's kernels did not launch, or "
+                    f"another did: {launches}")
+    if launches["gemm_bias"] != k2["flagship"]["launches"]:
+        return fail(f"gemm_bias: {launches['gemm_bias']} launches on the "
+                    f"flagship path, expected {k2['flagship']['launches']}")
     for name, lv in (("greedy", greedy), ("sampled", sampled),
                      ("frame", frame)):
         if lv.shape != (b, LENGTH) or lv.dtype != torch.int32:
@@ -702,8 +1089,30 @@ def main() -> int:
         return fail(str(err))
     print(f"phase 4 (training path): {time.perf_counter() - t0:.1f} s")
 
-    # ---- 5. the result lines ----
-    k2n = k2["n"]
+    # ---- 5-6. config 2: generation and training ----
+    t0 = time.perf_counter()
+    try:
+        c2_launches = c2_generation(torch, dev, exp2, params2, weights2,
+                                    k2["c2_3tier_lstm"]["launches"], card)
+        print(f"phase 5 (config 2 generation): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        k5_launches = c2_train_path(torch, dev, exp2, card)
+    except SmokeFailure as err:
+        return fail(str(err))
+    print(f"phase 6 (config 2 training): {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the result lines ----
+    # K2 over both decode paths, each case weighted by its launches there
+    k2_runs = {"flagship": launches["gemm_bias"],
+               "c2_3tier_lstm": c2_launches["gemm_bias"]}
+    k2n = sum(k2_runs.values())
+    k2_all = {key: sum(k2[p][key] * k2_runs[p] for p in k2) / k2n
+              for key in ("ms", "plain", "lib", "bound")}
+    k2_by = {}
+    for st in k2.values():
+        for by, cnt in st["by"].items():
+            k2_by[by] = k2_by.get(by, 0) + cnt
     line = {"kernels": [
         {"name": "frame_decode", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
@@ -714,33 +1123,47 @@ def main() -> int:
         {"name": "gemm_bias", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
-         "launches": launches["gemm_bias"], "max_abs_err": k2["err"],
-         "ms": k2["ms"] / k2n, "plain_ms": k2["plain"] / k2n,
-         "bound_ms": k2["bound"] / k2n,
-         "bound_by": max(k2["by"], key=k2["by"].get),
-         "library_ms": k2["lib"] / k2n},
+         "launches": k2n,
+         "max_abs_err": max(st["err"] for st in k2.values()),
+         "ms": k2_all["ms"], "plain_ms": k2_all["plain"],
+         "bound_ms": k2_all["bound"], "bound_by": max(k2_by, key=k2_by.get),
+         "library_ms": k2_all["lib"],
+         "by_path": {p: {"launches": k2_runs[p], "ms": st["ms"],
+                         "plain_ms": st["plain"], "bound_ms": st["bound"],
+                         "library_ms": st["lib"]} for p, st in k2.items()}},
         {"name": "gru_gates", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gru_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
          "launches": launches["gru_gates"], "max_abs_err": err3,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": lms3},
+        {"name": "lstm_gates", "route": "cuda",
+         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/lstm_gates.cu",
+         "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
+         "launches": c2_launches["lstm_gates"], "max_abs_err": k6[0],
+         "ms": k6[1], "plain_ms": k6[2], "bound_ms": k6[4],
+         "bound_by": k6[5], "library_ms": k6[3]},
     ] + [
-        {"name": f"gru_sequence_{d}", "route": "cuda",
-         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/"
-                   "gru_sequence.cu",
-         "replaces": f"samplernn_pase_tpu/ops/pallas/rnn_train.py:{line}",
-         "launches": k4_launches[f"gru_sequence_{d}"],
-         "max_abs_err": k4[d]["err"],
+        {"name": f"{cell}_sequence_{d}", "route": "cuda",
+         "source": f"samplernn_pase_tpu_torch/ops/kernels/csrc/"
+                   f"{cell}_sequence.cu",
+         "replaces": "samplernn_pase_tpu/ops/pallas/rnn_train.py:"
+                     f"{SEQ[cell]['pallas'][d == 'bwd']}",
+         "launches": seq_launches[f"{cell}_sequence_{d}"],
+         "max_abs_err": st[d]["err"],
          "max_abs_err_at": "float32 N=6 B=4 H=128",
-         "max_rel_err_bf16": k4[d]["rel_bf16"],
-         "max_rel_err_bf16_at": "bfloat16 N=64 and N=16, B=128, H=1024 "
-                                "(the timed shapes), of max|plain|",
-         "ms": k4[d]["ms"],
-         "plain_ms": k4[d]["plain"], "bound_ms": k4[d]["bound"],
-         "bound_by": max(k4[d]["by"], key=k4[d]["by"].get),
-         "library_ms": k4[d]["lib"]}
-        for d, line in (("fwd", 137), ("bwd", 156))
+         "max_rel_err_bf16": st[d]["rel_bf16"],
+         "max_rel_err_bf16_at": f"bfloat16 N={tiers}, B={nb}, H=1024 (the "
+                                "timed shapes), of max|plain|",
+         "ms": st[d]["ms"],
+         "plain_ms": st[d]["plain"], "bound_ms": st[d]["bound"],
+         "bound_by": max(st[d]["by"], key=st[d]["by"].get),
+         "library_ms": st[d]["lib"]}
+        for cell, st, seq_launches, tiers, nb in (
+            ("gru", k4, k4_launches, "64 and 16", BATCH),
+            ("lstm", k5, k5_launches, "64, 16 and 4",
+             exp2.train.batch_size))
+        for d in ("fwd", "bwd")
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

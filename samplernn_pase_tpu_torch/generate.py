@@ -12,8 +12,9 @@ Routes, chosen by ``use_kernels``:
   the plain model modules (``tier_step``, ``mlp_step``), the logic of the
   reference's ``_xla_generate``.
 
-The kernel route takes GRU tiers with n_rnn=1 at 2 or 3 tiers; other
-models raise ``NotImplementedError`` there (the plain route runs them).
+The kernel route takes GRU or LSTM tiers with n_rnn=1 at 2 or 3 tiers
+and frame_sizes[0] >= 2; n_rnn stacks, other tier counts and f1=1 raise
+``NotImplementedError`` there (the plain route runs them).
 On CPU tensors the kernel route runs the kernels' plain versions, which
 is how the tests hold it against the JAX package.  Its weights in kernel
 form (``prepare_weights``) belong to the model, not to a request:
@@ -54,9 +55,9 @@ def next_pow2(n: int) -> int:
 
 def kernel_scope_error(cfg: SampleRNNConfig) -> str | None:
     """Why the decode kernels cannot run ``cfg``, or None if they can."""
-    if cfg.rnn_type != "gru":
-        return "the decode kernels take GRU tiers; LSTM comes with " \
-               "ROADMAP.md B4"
+    if cfg.rnn_type not in ("gru", "lstm"):
+        return f"the decode kernels take GRU or LSTM tiers, not " \
+               f"{cfg.rnn_type}"
     if cfg.n_rnn != 1:
         return "the decode kernels take n_rnn=1; n_rnn stacks come with " \
                "ROADMAP.md B4"
@@ -185,7 +186,8 @@ def generate_levels(params, cfg: SampleRNNConfig, n_seqs: int, length: int,
     ``temperature`` None or 0 = greedy.  ``seed``/``noise_pos0`` key the
     sampling noise (see the module docstring).  ``initial_states`` (per
     tier [n_rnn, B, dim]) and ``hist`` ([B, lookback] int32) continue a
-    stream; ``return_state`` returns (levels, states, hist) to carry on.
+    stream (LSTM tiers [n_rnn, 2, B, dim]); ``return_state`` returns
+    (levels, states, hist) to carry on.
     ``use_kernels``: None = kernels on CUDA, plain on CPU; True or
     "frame" = kernels; False = plain.  ``device``: where to run (default
     CUDA, which must be present); the parameters are moved there.

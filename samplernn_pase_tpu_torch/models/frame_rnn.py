@@ -13,7 +13,8 @@ import torch
 from samplernn_pase_tpu_torch.models import rnn_cells
 from samplernn_pase_tpu_torch.ops import init as winit
 from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
-from samplernn_pase_tpu_torch.ops.kernels.rnn_train import gru_sequence
+from samplernn_pase_tpu_torch.ops.kernels.rnn_train import (
+    gru_sequence, lstm_sequence)
 from samplernn_pase_tpu_torch.ops.matmul import matmul_dt, matmul_f32, torch_dtype
 
 
@@ -73,19 +74,17 @@ def tier_rnn(params, x, state, rnn_type: str, compute_dtype,
     """Run the n_rnn-layer recurrent stack over the frame axis.
 
     x [B, N, dim]; state [n_rnn, ...] as built by tier_initial_state.
-    Returns (h_seq [B, N, dim], new_state).  ``use_kernel`` runs each GRU
-    layer through ``gru_sequence`` (the whole-sequence kernel and its
-    backward kernel, or their plain versions on CPU tensors); otherwise
-    the layer is ``precompute_inputs`` + the autograd ``rnn_scan``."""
+    Returns (h_seq [B, N, dim], new_state).  ``use_kernel`` runs each
+    layer through ``gru_sequence`` or ``lstm_sequence`` (the
+    whole-sequence kernel and its backward kernel, or their plain versions
+    on CPU tensors); otherwise the layer is ``precompute_inputs`` + the
+    autograd ``rnn_scan``."""
+    seq_fn = gru_sequence if rnn_type == "gru" else lstm_sequence
     h_seq = x
     new_states = []
     for i, layer in enumerate(params["rnn"]):
         if use_kernel:
-            if rnn_type != "gru":
-                raise NotImplementedError(
-                    "the training sequence kernel takes GRU layers; LSTM "
-                    "comes with ROADMAP.md B6")
-            hs, final = gru_sequence(
+            hs, final = seq_fn(
                 h_seq.transpose(0, 1), state[i], layer["w_ih"],
                 layer["b_ih"], layer["w_hh"], layer["b_hh"],
                 torch_dtype(compute_dtype))

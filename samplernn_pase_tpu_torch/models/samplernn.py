@@ -10,16 +10,14 @@ targets with ``T % lookback == 0``.  External conditioning arrives at
 (nearest previous frame).
 
 Training RNN route (``cfg.pallas_train_rnn``, as the reference's
-``forward``): ``True`` or ``"auto"`` on CUDA tensors runs each eligible GRU
-tier through the whole-sequence kernel (``ops/kernels/rnn_train.py``, whose
-docstring gives the eligibility on the H100: GRU, ``dim % 8 == 0``, and
-the serial kernels' blocks co-resident, dim <= 2,112 in bf16 on 132 SMs);
-an LSTM tier there raises ``NotImplementedError`` (ROADMAP.md B6) and a
-GRU tier the kernel cannot take raises ``ValueError`` with the reason.
-``False`` is the reference's own scan route, the autograd ``rnn_scan``,
-everywhere, and the only route that scans on the card.  On CPU tensors
-``True`` runs the kernel's plain versions for GRU tiers and the scan for
-LSTM tiers; ``"auto"`` scans.
+``forward``): ``True`` or ``"auto"`` on CUDA tensors runs each tier through
+the whole-sequence kernels (``ops/kernels/rnn_train.py``: K4 for GRU, K5
+for LSTM; its docstring gives the eligibility on the H100: ``dim % 8 ==
+0`` and the serial kernels' blocks co-resident, dim <= 1,056 in float32
+on 132 SMs), and a tier the kernel cannot take raises ``ValueError`` with
+the reason.  ``False`` is the reference's own scan route, the autograd
+``rnn_scan``, everywhere, and the only route that scans on the card.  On
+CPU tensors ``True`` runs the kernels' plain versions; ``"auto"`` scans.
 """
 
 from __future__ import annotations
@@ -116,9 +114,9 @@ def _log_rnn_path(k: int, use_kernel: bool, reason: str):
 
 
 def _rnn_route(cfg: SampleRNNConfig, k: int, device) -> bool:
-    """Whether tier k's training RNN runs through ``gru_sequence``.  On
-    CUDA under ``True``/``"auto"`` a tier the kernel cannot take raises:
-    only ``pallas_train_rnn=False`` scans on the card."""
+    """Whether tier k's training RNN runs through the sequence kernels.
+    On CUDA under ``True``/``"auto"`` a tier the kernel cannot take
+    raises: only ``pallas_train_rnn=False`` scans on the card."""
     flag = cfg.pallas_train_rnn
     on_cuda = device.type == "cuda"
     enabled = flag is True or (flag == "auto" and on_cuda)
@@ -127,21 +125,14 @@ def _rnn_route(cfg: SampleRNNConfig, k: int, device) -> bool:
         reason = ("pallas_train_rnn=False" if flag is False
                   else "auto: not on a CUDA device")
     elif on_cuda:
-        if cfg.rnn_type == "lstm":
-            raise NotImplementedError(
-                "pallas_train_rnn on CUDA: the LSTM sequence kernel comes "
-                "with ROADMAP.md B6; set pallas_train_rnn=False to scan")
         why = rnn_train.kernel_scope_error(cfg.rnn_type, cfg.dim,
                                            cfg.compute_dtype, device)
         if why:
             raise ValueError(
                 f"pallas_train_rnn={flag!r} on CUDA: tier {k}: {why}; set "
                 "pallas_train_rnn=False to scan")
-    elif cfg.rnn_type != "gru":
-        reason = f"no plain sequence version for rnn_type={cfg.rnn_type}"
-    use = enabled and not reason
-    _log_rnn_path(k, use, reason)
-    return use
+    _log_rnn_path(k, enabled, reason)
+    return enabled
 
 
 def cond_index(n_frames: int, span: int, cond_rate: int, device=None):

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("frame_decode", "gemm_bias", "gru_gates", "gru_sequence")
+SOURCES = ("frame_decode", "gemm_bias", "gru_gates", "gru_sequence",
+           "lstm_gates", "lstm_sequence")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""Decode kernels K1-K3, their plain PyTorch versions, and the per-frame
-counterparts of ``samplernn_pase_tpu/ops/pallas/decode.py``.
+"""Decode kernels K1-K3 and K6, their plain PyTorch versions, and the
+per-frame counterparts of ``samplernn_pase_tpu/ops/pallas/decode.py``.
 
 Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
 
@@ -8,6 +8,8 @@ Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
 * K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)``
   for every product outside the MLP, with int32 levels dequantized on load.
 * K3 ``gru_gates`` (``csrc/gru_gates.cu``): the GRU gate math.
+* K6 ``lstm_gates`` (``csrc/lstm_gates.cu``): the LSTM gate math, on the
+  gate sum that K2 forms in one buffer (its ``add`` input).
 
 Each wrapper checks its tensors, allocates its outputs with
 ``torch.empty``, launches on the current stream and adds one to its
@@ -21,8 +23,9 @@ before running a plain version on the card.
 
 ``fused_frame_decode`` and ``fused_tier_frame_decode`` are the
 counterparts of the Pallas kernels of the same names: the first is K1;
-the second is K2 (tier input + ``upper``), K2 twice (the gates), K3, K2
-(the upsample) and K1.
+the second is K2 (tier input + ``upper``), K2 twice (the gates), K3 (GRU)
+or K6 (LSTM), K2 (the upsample) and K1.  A tier's state is a tuple of
+float32 [B, H] tensors: ``(h,)`` for a GRU, ``(h, c)`` for an LSTM.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from samplernn_pase_tpu_torch.ops.kernels.noise import gumbel_block
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"frame_decode": 0, "gemm_bias": 0, "gru_gates": 0}
+LAUNCHES = {"frame_decode": 0, "gemm_bias": 0, "gru_gates": 0,
+            "lstm_gates": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -48,6 +52,8 @@ _SIGNATURES = {
                    _F, _P]),
     "gru_gates": ("srnn_gru_gates",
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
+    "lstm_gates": ("srnn_lstm_gates",
+                   [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
     "frame_decode": ("srnn_frame_decode",
                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _F, ctypes.c_uint64, _I64, _P, _I64, _I, _I, _I, _I, _I,
@@ -186,6 +192,35 @@ def gru_gates(xg, hg, h):
     return out
 
 
+# ----------------------------------------------------------------- K6 --
+
+def lstm_gates_plain(g, c):
+    hdim = c.shape[-1]
+    i = torch.sigmoid(g[:, :hdim])
+    f = torch.sigmoid(g[:, hdim:2 * hdim])
+    gg = torch.tanh(g[:, 2 * hdim:3 * hdim])
+    o = torch.sigmoid(g[:, 3 * hdim:])
+    c_new = f * c + i * gg
+    return o * torch.tanh(c_new), c_new
+
+
+def lstm_gates(g, c):
+    """K6: LSTM gates from g [B, 4H] (i, f, g, o; the sum xg + hg) and c
+    [B, H] -> (h' [B, H], c' [B, H]), all float32; rows of g and c may be
+    strided."""
+    if _on_cpu(g, c):
+        return lstm_gates_plain(g, c)
+    b, hdim = c.shape
+    _check(g, "g", (torch.float32,), (b, 4 * hdim), rows_strided=True)
+    _check(c, "c", (torch.float32,), (b, hdim), rows_strided=True)
+    h_out = torch.empty((b, hdim), dtype=torch.float32, device=c.device)
+    c_out = torch.empty_like(h_out)
+    _launch("lstm_gates", g.data_ptr(), g.stride(0), c.data_ptr(),
+            c.stride(0), h_out.data_ptr(), c_out.data_ptr(), b, hdim,
+            _stream(c))
+    return h_out, c_out
+
+
 # ----------------------------------------------------------------- K1 --
 
 def frame_decode_plain(window, cond, bup, mw, temperature, noise=None,
@@ -284,29 +319,29 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
 # --------------------------------------------------- composite ops --
 
 class Ops(NamedTuple):
-    """The three ops a decode path calls: the kernel wrappers, or their
-    plain versions (to hold a path against its plain twin on the card)."""
+    """The ops a decode path calls: the kernel wrappers, or their plain
+    versions (to hold a path against its plain twin on the card)."""
     gemm: object
-    gates: object
+    gru_gates: object
+    lstm_gates: object
     frame: object
 
 
-KERNELS = Ops(gemm_bias, gru_gates, frame_decode)
-PLAIN = Ops(gemm_bias_plain, gru_gates_plain, frame_decode_plain)
+KERNELS = Ops(gemm_bias, gru_gates, lstm_gates, frame_decode)
+PLAIN = Ops(gemm_bias_plain, gru_gates_plain, lstm_gates_plain,
+            frame_decode_plain)
 
 
 def prepare_tier(tier, dtype) -> dict:
-    """A GRU tier's weights in kernel form: weight-norm resolved, matrices
-    in ``dtype`` and contiguous, biases float32 (``b_up`` also flat)."""
+    """A GRU or LSTM tier's weights in kernel form: weight-norm resolved,
+    matrices in ``dtype`` and contiguous (``w_ih``/``w_hh`` [H, 3H] or
+    [H, 4H]), biases float32 (``b_up`` also flat)."""
     dt = torch_dtype(dtype)
     if len(tier["rnn"]) != 1:
         raise NotImplementedError(
             "decode kernels take n_rnn=1 tiers; n_rnn stacks come with "
             "ROADMAP.md B4")
     rnn = tier["rnn"][0]
-    if rnn["w_hh"].shape[1] != 3 * rnn["w_hh"].shape[0]:
-        raise NotImplementedError(
-            "decode kernels take GRU tiers; LSTM comes with ROADMAP.md B4")
     f32 = torch.float32
     return {
         "w_in": wnorm.resolve(tier["w_in"]).to(dt).contiguous(),
@@ -343,26 +378,63 @@ def prepare_mlp(mlp, dtype, f1: int, ops: Ops = KERNELS) -> dict:
     }
 
 
-def tier_cell(tw, frame, upper, h, q_levels, ops: Ops = KERNELS):
-    """One GRU tier step in kernels: K2 (levels -> dequantized frame
-    @ w_in + b_in + upper), K2 twice (the gates), K3.  frame [B, span]
-    int32 levels; upper [B, H] float32 or None; h [B, H] -> h' [B, H]."""
+def tier_gates(w_hh) -> int:
+    """A tier's gate count from its w_hh: 3 for a GRU's [H, 3H], 4 for an
+    LSTM's [H, 4H]; anything else raises ValueError."""
+    hdim, n = w_hh.shape
+    if n not in (3 * hdim, 4 * hdim):
+        raise ValueError(f"w_hh {tuple(w_hh.shape)} is neither a GRU's "
+                         "[H, 3H] nor an LSTM's [H, 4H]")
+    return n // hdim
+
+
+def decode_state(s, w_hh):
+    """A tier's model-layout state -> its decode state, float32: [1, B, H]
+    -> ``(h,)`` for a GRU tier, [1, 2, B, H] -> ``(h, c)`` for an LSTM
+    tier (told apart by w_hh).  Any other layout raises ValueError."""
+    hdim = w_hh.shape[0]
+    lead = (1,) if tier_gates(w_hh) == 3 else (1, 2)
+    if tuple(s.shape[:-2]) != lead or s.shape[-1] != hdim:
+        kind = "GRU" if len(lead) == 1 else "LSTM"
+        raise ValueError(f"the {kind} tier with w_hh {tuple(w_hh.shape)} "
+                         f"takes a state {list(lead) + ['B', hdim]}, got "
+                         f"{tuple(s.shape)}")
+    return tuple(s.to(torch.float32).reshape(-1, *s.shape[-2:]))
+
+
+def model_state(state):
+    """A decode state -> the model layout: ``(h,)`` -> [1, B, H], ``(h, c)``
+    -> [1, 2, B, H]."""
+    s = torch.stack(state)
+    return s if len(state) == 1 else s[None]
+
+
+def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS):
+    """One tier step in kernels: K2 (levels -> dequantized frame @ w_in +
+    b_in + upper), K2 (the input gates ``xg``), then for a GRU K2 (``hg``)
+    and K3, for an LSTM K2 with ``xg`` as its ``add`` (``(h @ w_hh +
+    b_hh) + xg``, the reference's ``xg + hg`` in one buffer) and K6.
+    frame [B, span] int32 levels; upper [B, H] float32 or None; state
+    ``(h,)`` (GRU) or ``(h, c)`` (LSTM), from ``decode_state`` -> the new
+    state, same form."""
     x = ops.gemm(frame, tw["w_in"], tw["b_in"], upper, levels_q=q_levels)
     xg = ops.gemm(x, tw["w_ih"], tw["b_ih"])
-    hg = ops.gemm(h, tw["w_hh"], tw["b_hh"])
-    return ops.gates(xg, hg, h)
+    h = state[0]
+    if len(state) == 1:
+        return (ops.gru_gates(xg, ops.gemm(h, tw["w_hh"], tw["b_hh"]), h),)
+    return ops.lstm_gates(ops.gemm(h, tw["w_hh"], tw["b_hh"], xg), state[1])
 
 
-def tier_frame(tw, mw, window, upper, h, temperature, q_levels,
+def tier_frame(tw, mw, window, upper, state, temperature, q_levels,
                ops: Ops = KERNELS, noise=None, seed=0, pos0=0, out=None):
     """The bottom tier's whole frame on prepared weights: the tier cell,
     the upsample ``h' @ w_up`` (K2, ``b_up`` added per row in K1) and the
-    f1 MLP steps (K1).  Returns (samples [B, f1], h' [B, H])."""
-    h_new = tier_cell(tw, window, upper, h, q_levels, ops)
-    cond = ops.gemm(h_new, tw["w_up"])
+    f1 MLP steps (K1).  Returns (samples [B, f1], the new state)."""
+    state = tier_cell(tw, window, upper, state, q_levels, ops)
+    cond = ops.gemm(state[0], tw["w_up"])
     samples = ops.frame(window, cond, tw["b_up"], mw, temperature, noise,
                         seed, pos0, out)
-    return samples, h_new
+    return samples, state
 
 
 def fused_frame_decode(window, cond, temperature, mlp_params, *,
@@ -389,20 +461,25 @@ def fused_tier_frame_decode(window, upper_cond, h_prev, temperature,
                             rnn_type: str = "gru", weights_dtype="bfloat16",
                             noise=None, seed: int = 0, pos0: int = 0):
     """Counterpart of ``ops/pallas/decode.py:fused_tier_frame_decode``
-    (GRU, n_rnn=1): the bottom tier's GRU step, its upsample and the f1
+    (n_rnn=1): the bottom tier's GRU or LSTM step, its upsample and the f1
     MLP steps.
 
     window [B, f1] int32; upper_cond [B, H] float32; h_prev [1, B, H]
-    float32.  Returns (samples [B, f1] int32, h_new [1, B, H] float32)."""
-    if rnn_type != "gru":
-        raise NotImplementedError(
-            "decode kernels take GRU tiers; LSTM comes with ROADMAP.md B4")
+    (GRU) or [2, B, H] (LSTM: h, c) float32.  Returns (samples [B, f1]
+    int32, h_new in h_prev's layout, float32)."""
+    w_hh = tier_params["rnn"][0]["w_hh"]
+    gates = tier_gates(w_hh)
+    if gates != {"gru": 3, "lstm": 4}[rnn_type]:
+        raise ValueError(f"rnn_type={rnn_type!r} but the tier has {gates} "
+                         "gates")
+    # the reference's h_prev is the model layout without its n_rnn axis
+    # for an LSTM ([2, B, H]), and the model layout itself for a GRU
+    state = decode_state(h_prev[None] if gates == 4 else h_prev, w_hh)
     f1 = window.shape[1]
     dt = torch_dtype(weights_dtype)
     tw = prepare_tier(tier_params, dt)
     mw = prepare_mlp(mlp_params, dt, f1)
-    samples, h_new = tier_frame(
-        tw, mw, window.to(torch.int32), upper_cond.to(torch.float32),
-        h_prev[0].to(torch.float32), temperature, q_levels, KERNELS, noise,
-        seed, pos0)
-    return samples, h_new[None]
+    samples, state = tier_frame(
+        tw, mw, window.to(torch.int32), upper_cond.to(torch.float32), state,
+        temperature, q_levels, KERNELS, noise, seed, pos0)
+    return samples, torch.stack(state)

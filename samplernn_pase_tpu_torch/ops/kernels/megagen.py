@@ -1,7 +1,8 @@
 """Whole generation on the decode kernels: the counterpart of
-``samplernn_pase_tpu/ops/pallas/megagen.py:generate_full_pallas`` in its
-flagship form (resident weights, GRU, n_rnn=1, 2 or 3 tiers,
-unconditioned, greedy or sampled).
+``samplernn_pase_tpu/ops/pallas/megagen.py:generate_full_pallas`` for GRU
+and LSTM tiers with n_rnn=1, 2 or 3 tiers, unconditioned, greedy or
+sampled (its resident and ``stream_top`` forms compute the same samples;
+here every weight is read from L2 or device memory at each use).
 
 The TPU megakernel keeps every weight (~55 MB in bf16) resident in one
 core's 128 MiB of VMEM for one launch.  The flagship's bf16 weights are
@@ -10,11 +11,15 @@ core's 128 MiB of VMEM for one launch.  The flagship's bf16 weights are
 over; a single persistent kernel is later work.  Here the loop over top
 frames runs on the host and launches the kernels of ``decode.py``:
 
-* per tier-k step (k > 0): K2 (tier input + upper), K2 x2 (gates), K3,
-  K2 (upsample, bias added);
+* per tier-k step (k > 0): K2 (tier input + upper), K2 x2 (gates), K3
+  (GRU) or K6 (LSTM), K2 (upsample, bias added);
 * per bottom frame: ``decode.tier_frame``, the counterpart of
   ``fused_tier_frame_decode``: the same cell, K2 (upsample rows, ``b_up``
   added per row by K1), then K1 for the f1 samples.
+
+A flagship top frame (2-tier GRU, frame_sizes (16, 4)) takes 29 launches;
+config 2's (3-tier LSTM, (16, 4, 4)) 121: 5 for tier 2, 4 x 5 for tier 1
+and 16 x 6 for the bottom frames.
 
 Lower tiers recurse as in the megakernel's ``decode``.  The levels go
 into one preallocated int32 buffer ``[B, lookback + n_top*lookback]``
@@ -31,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from samplernn_pase_tpu_torch.ops.kernels.decode import (
-    KERNELS, PLAIN, Ops, prepare_mlp, prepare_tier, tier_cell, tier_frame)
+    KERNELS, PLAIN, Ops, decode_state, model_state, prepare_mlp,
+    prepare_tier, tier_cell, tier_frame, tier_gates)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 
 
@@ -46,8 +52,9 @@ def run(weights, window, states, temperature, n_top, q_levels,
         ops: Ops = KERNELS, seed: int = 0, pos0: int = 0, gumbel=None):
     """Generate ``n_top`` top frames on prepared weights.
 
-    window [B, lookback] int32; states: per-tier [1, B, H] float32.
-    Returns (levels [B, n_top*lookback] int32, final states, same layout).
+    window [B, lookback] int32; states: per-tier model-layout states,
+    [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32.  Returns (levels
+    [B, n_top*lookback] int32, final states, same layout).
     ``pos0`` is the absolute position of the first sample (the Philox
     counter); ``gumbel`` [n_bottom, f1, B, q] float32 replaces Philox."""
     tiers = weights["tiers"]
@@ -69,7 +76,9 @@ def run(weights, window, states, temperature, n_top, q_levels,
     buf = torch.empty((b, lookback + n_top * lookback), dtype=torch.int32,
                       device=window.device)
     buf[:, :lookback] = window
-    h = [s[0].to(torch.float32) for s in states]
+    if len(states) != len(tiers):
+        raise ValueError(f"{len(states)} states for {len(tiers)} tiers")
+    h = [decode_state(s, t["w_hh"]) for s, t in zip(states, tiers)]
 
     def decode(k, upper, p):
         """Tier k's frame starting at generated sample p."""
@@ -82,21 +91,27 @@ def run(weights, window, states, temperature, n_top, q_levels,
                                  pos0 + p, buf[:, start:start + f1])
             return
         h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops)
-        cond = ops.gemm(h[k], tiers[k]["w_up"], tiers[k]["b_up_flat"])
-        hdim = h[k].shape[1]
+        cond = ops.gemm(h[k][0], tiers[k]["w_up"], tiers[k]["b_up_flat"])
+        hdim = h[k][0].shape[1]
         for j in range(frame_sizes[k]):
             decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
                    p + j * spans[k - 1])
 
     for t in range(n_top):
         decode(len(tiers) - 1, None, t * lookback)
-    return buf[:, lookback:], tuple(x[None] for x in h)
+    return buf[:, lookback:], tuple(model_state(x) for x in h)
 
 
 def _check_scope(tiers, rnn_type):
-    if rnn_type != "gru":
-        raise NotImplementedError(
-            "generate_full takes GRU tiers; LSTM comes with ROADMAP.md B4")
+    gates = {"gru": 3, "lstm": 4}.get(rnn_type)
+    if gates is None:
+        raise NotImplementedError(f"generate_full takes GRU or LSTM tiers, "
+                                  f"not {rnn_type!r}")
+    for t in tiers:
+        w = t["rnn"][0]["w_hh"]
+        if tier_gates(w) != gates:
+            raise ValueError(f"rnn_type={rnn_type!r} but a tier's w_hh is "
+                             f"{tuple(w.shape)}")
     if len(tiers) not in (2, 3):
         raise NotImplementedError(
             f"generate_full takes 2 or 3 tiers, got {len(tiers)}; other "
@@ -107,13 +122,14 @@ def generate_full(window, states, temperature, tiers, mlp, *, n_top: int,
                   q_levels: int = 256, rnn_type: str = "gru",
                   weights_dtype="bfloat16", seed: int = 0, pos0: int = 0,
                   gumbel=None, ops: Ops = KERNELS):
-    """Counterpart of ``generate_full_pallas`` (flagship form).
+    """Counterpart of ``generate_full_pallas`` (n_rnn=1, unconditioned).
 
     window [B, lookback] int32 seed context; states: tuple of per-tier
-    model-layout states [1, B, H] float32; tiers: tier params bottom ->
-    top; temperature 0 = greedy.  Sampling draws Philox noise from
-    ``seed`` at absolute positions ``pos0 ..``, or reads ``gumbel``
-    [n_bottom, f1, B, q] (the Pallas kernel's host-noise input).  Returns
+    model-layout states, [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32;
+    tiers: tier params bottom -> top; temperature 0 = greedy.  Sampling
+    draws Philox noise from ``seed`` at absolute positions ``pos0 ..``, or
+    reads ``gumbel`` [n_bottom, f1, B, q] (the Pallas kernel's host-noise
+    input).  Returns
     (levels [B, n_top*lookback] int32 -- the Pallas kernel's
     [n_top, B, lookback] blocks laid end to end per lane -- and the final
     states)."""
@@ -125,7 +141,8 @@ def generate_full(window, states, temperature, tiers, mlp, *, n_top: int,
 
 
 def generate_full_plain(window, states, temperature, tiers, mlp, **kw):
-    """``generate_full`` through the plain versions of K1-K3 (the same
-    arithmetic in PyTorch), to hold the kernel path against on the card."""
+    """``generate_full`` through the plain versions of K1, K2, K3 and K6
+    (the same arithmetic in PyTorch), to hold the kernel path against on
+    the card."""
     return generate_full(window, states, temperature, tiers, mlp,
                          ops=PLAIN, **kw)

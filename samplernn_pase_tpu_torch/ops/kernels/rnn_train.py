@@ -1,37 +1,48 @@
-"""The whole-sequence GRU of a training step: K4 forward and backward,
-their plain PyTorch versions, and ``gru_sequence``, the counterpart of
-``samplernn_pase_tpu/ops/pallas/rnn_train.py:gru_sequence``.
+"""The whole-sequence RNNs of a training step: K4 ``gru_sequence`` and K5
+``lstm_sequence``, forward and backward, their plain PyTorch versions, and
+the counterparts of ``samplernn_pase_tpu/ops/pallas/rnn_train.py``'s
+``gru_sequence`` and ``lstm_sequence``.
 
-Math (gates r, z, n in the cuDNN order, as ``rnn_cells.gru_step``):
+GRU math (gates r, z, n in the cuDNN order, as ``rnn_cells.gru_step``):
     xg = round(x_t) @ Wih + bih ; hg = round(h_{t-1}) @ Whh + bhh
     r = s(xr + hr) ; z = s(xz + hz) ; n = tanh(xn + r * hn)
     h_t = (1 - z) * n + z * h_{t-1}
+LSTM math (gates i, f, g, o, as ``rnn_cells.lstm_step``):
+    g = xg + hg ; c_t = s(g_f) * c_{t-1} + s(g_i) * tanh(g_g)
+    h_t = s(g_o) * tanh(c_t)
 ``round`` is the cast to the weights dtype; products accumulate in
-float32; biases, gates and the carried ``h`` are float32.  ``h_seq`` is
-stored in the weights dtype and handed back as float32; ``h_fin`` is the
-float32 carry.  The backward pass follows the reference's VJP: ``dh_seq``
-is rounded to the weights dtype; ``h_{t-1}`` is the stored (rounded)
-``h_seq[t-1]``, or the float32 ``h0`` at t=0; ``d_xg``/``d_hg`` are
-rounded before the ``dx``, ``dW`` and carry products, while the bias sums
-and the ``g*z`` term use them unrounded; ``dx`` is stored in the weights
-dtype and cast to ``x``'s dtype; ``dh0``, ``dW`` and ``db`` are float32.
+float32; biases, gates and the carried ``h`` and ``c`` are float32.
+``h_seq`` (and the LSTM's ``c_seq``) are stored in the weights dtype and
+``h_seq`` is handed back as float32; the final state is the float32
+carry.  The backward passes follow the reference's VJPs: ``dh_seq`` is
+rounded to the weights dtype; ``h_{t-1}`` is the stored (rounded)
+``h_seq[t-1]``, or the float32 ``h0`` at t=0; the LSTM reads ``c_{t-1}``
+and ``c_t`` back from the rounded ``c_seq`` (``c0`` float32 at t=0), so
+``tanh(c_t)`` and ``dc * c_{t-1}`` see rounded values; the gate gradients
+are rounded before the ``dx``, ``dW`` and carry products, while the bias
+sums (and the GRU's ``g*z`` term, the LSTM's ``dc_{t-1} = dc * f``) use
+them unrounded; ``dx`` is stored in the weights dtype and cast to ``x``'s
+dtype; ``dh0``, ``dc0``, ``dW`` and ``db`` are float32.
 
-The kernel (``csrc/gru_sequence.cu``) keeps ``xg`` and ``hg`` of the
-forward pass as residuals ([N, B, 3H] float32 each), so the backward pass
-does not recompute them: the values equal the reference's recompute, since
-``hbuf[t] = round(h_{t-1})`` is what both products read.
+The kernels (``csrc/gru_sequence.cu``, ``csrc/lstm_sequence.cu``) keep
+gate pre-activations of the forward pass as residuals, so the backward
+pass does not recompute them: K4 keeps ``xg`` and ``hg`` ([N, B, 3H]
+float32 each), K5 the one sum ``g`` ([N, B, 4H] float32).  The values
+equal the reference's recompute, since ``hbuf[t] = round(h_{t-1})`` is
+what both products read.
 
-Eligibility on the H100 (``kernel_scope_error``): a GRU (LSTM is ROADMAP
-B6); ``dim % 8 == 0`` (each block of the serial kernels owns 8 hidden
-units and reads rows in 16-byte vectors); each block's Whh slice and a
-staged tile in shared memory, about 48*dim + 34,816 bytes in bf16 and
-96*dim + 67,584 in float32, within the 227 KB a block may use; and all
-``dim / 8`` blocks co-resident for the grid barrier.  The library answers
-the last two for the card at hand (``srnn_gru_seq_fits``): on an H100
-with 132 SMs the flagship's dim 1024 fits in both dtypes, two bf16 blocks
-share an SM up to dim 2,112, and float32 takes one block per SM, so
-dim <= 1,056.  Device memory holds the residuals: 24*N*B*H bytes for xg
-and hg plus (N+1)*B*H in the weights dtype.
+Eligibility on the H100 (``kernel_scope_error``): a GRU or an LSTM;
+``dim % 8 == 0`` (each block of the serial kernels owns 8 hidden units
+and reads rows in 16-byte vectors); each block's Whh slice and a staged
+tile in shared memory, within the 227 KB a block may use (K4: about
+48*dim + 34,816 bytes in bf16 and 96*dim + 67,584 in float32; K5: 64*dim
++ 34,816 and 128*dim + 67,584); and all ``dim / 8`` blocks co-resident
+for the grid barrier.  The library answers the last two for the card at
+hand (``srnn_gru_seq_fits``, ``srnn_lstm_seq_fits``): on an H100 with 132
+SMs dim 1024 fits both kernels in both dtypes; float32 takes one block
+per SM, so dim <= 1,056.  Device memory holds the residuals: 24*N*B*H bytes
+for K4's xg and hg, 16*N*B*H for K5's g, plus the stored sequences in
+the weights dtype.
 
 Each wrapper runs its plain version on CPU tensors (how the CPU tests run)
 and, on CUDA tensors, launches its kernel or raises; it adds one to its
@@ -51,15 +62,24 @@ from samplernn_pase_tpu_torch.ops.kernels.decode import (
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0}
+LAUNCHES = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0,
+            "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0}
 
 UNITS = 8                       # hidden units per block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> (library, symbol, argument types)
 _SIGNATURES = {
-    "gru_sequence_fwd": ("srnn_gru_seq_fwd", [_P] * 10 + [_I] * 4 + [_P]),
-    "gru_sequence_bwd": ("srnn_gru_seq_bwd", [_P] * 17 + [_I] * 4 + [_P]),
-    "fits": ("srnn_gru_seq_fits", [_I, _I]),
+    "gru_sequence_fwd": ("gru_sequence", "srnn_gru_seq_fwd",
+                         [_P] * 10 + [_I] * 4 + [_P]),
+    "gru_sequence_bwd": ("gru_sequence", "srnn_gru_seq_bwd",
+                         [_P] * 17 + [_I] * 4 + [_P]),
+    "gru_fits": ("gru_sequence", "srnn_gru_seq_fits", [_I, _I]),
+    "lstm_sequence_fwd": ("lstm_sequence", "srnn_lstm_seq_fwd",
+                          [_P] * 12 + [_I] * 4 + [_P]),
+    "lstm_sequence_bwd": ("lstm_sequence", "srnn_lstm_seq_bwd",
+                          [_P] * 18 + [_I] * 4 + [_P]),
+    "lstm_fits": ("lstm_sequence", "srnn_lstm_seq_fits", [_I, _I]),
 }
 
 
@@ -69,30 +89,29 @@ def reset_launches():
 
 
 def _fn(name):
-    symbol, argtypes = _SIGNATURES[name]
-    fn = getattr(_build.load("gru_sequence"), symbol)
+    library, symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(_build.load(library), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _fits(dim: int, w_bf16: int, index: int) -> int:
-    """``srnn_gru_seq_fits`` on CUDA device ``index``, asked once per
-    width, weights dtype and device."""
+def _fits(rnn_type: str, dim: int, w_bf16: int, index: int) -> int:
+    """``srnn_gru_seq_fits`` or ``srnn_lstm_seq_fits`` on CUDA device
+    ``index``, asked once per cell, width, weights dtype and device."""
     with torch.cuda.device(index):
-        return _fn("fits")(dim, w_bf16)
+        return _fn(f"{rnn_type}_fits")(dim, w_bf16)
 
 
 def kernel_scope_error(rnn_type: str, dim: int, weights_dtype,
                        device) -> str | None:
-    """Why the GRU sequence kernels cannot run a tier of this width on
-    ``device`` (a CUDA device: the library is asked), or None.  The
+    """Why the sequence kernels cannot run a tier of this cell and width
+    on ``device`` (a CUDA device: the library is asked), or None.  The
     training route asks this once per tier; a launch the card cannot
     hold fails in the library instead of deadlocking."""
-    if rnn_type != "gru":
-        return (f"no training kernel for rnn_type={rnn_type}: LSTM comes "
-                "with ROADMAP.md B6")
+    if rnn_type not in ("gru", "lstm"):
+        return f"no training kernel for rnn_type={rnn_type}"
     if dim % UNITS:
         return f"dim {dim} is not a multiple of {UNITS}"
     wt = torch_dtype(weights_dtype)
@@ -101,14 +120,14 @@ def kernel_scope_error(rnn_type: str, dim: int, weights_dtype,
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    fits = _fits(dim, int(wt == torch.bfloat16), index)
+    fits = _fits(rnn_type, dim, int(wt == torch.bfloat16), index)
     if fits == 1:
         return f"dim {dim} needs more shared memory than a block has"
     if fits == 2:
         return (f"dim {dim} needs {dim // UNITS} co-resident blocks, more "
                 "than the card holds")
     if fits:
-        raise RuntimeError(f"srnn_gru_seq_fits: CUDA error {-fits}")
+        raise RuntimeError(f"srnn_{rnn_type}_seq_fits: CUDA error {-fits}")
     return None
 
 
@@ -122,7 +141,7 @@ def _launch(name, *args):
 def _weights_dtype(weights_dtype) -> torch.dtype:
     wt = torch_dtype(weights_dtype)
     if wt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gru_sequence: weights dtype {wt}")
+        raise TypeError(f"sequence kernels: weights dtype {wt}")
     return wt
 
 
@@ -315,3 +334,194 @@ def gru_sequence(x_seq, h0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
     float32, h_final [B, H] float32), differentiable through the backward
     kernel."""
     return _GruSequence.apply(x_seq, h0, wih, bih, whh, bhh, weights_dtype)
+
+
+# ------------------------------------------------------ LSTM: K5 --
+
+def _lstm_gates(g, hdim):
+    return (torch.sigmoid(g[:, :hdim]), torch.sigmoid(g[:, hdim:2 * hdim]),
+            torch.tanh(g[:, 2 * hdim:3 * hdim]),
+            torch.sigmoid(g[:, 3 * hdim:]))
+
+
+def lstm_sequence_fwd_plain(x, h0, c0, wih, bih, whh, bhh,
+                            weights_dtype="bfloat16"):
+    """Plain version of K5's forward kernel.  x [N, B, H]; h0, c0 [B, H];
+    wih/whh [H, 4H]; biases [4H].  Returns (hbuf [N+1, B, H] in the
+    weights dtype with hbuf[0] = round(h0) and hbuf[t+1] = round(h_t),
+    c_seq [N, B, H] in the weights dtype, h_fin and c_fin [B, H] float32,
+    g [N, B, 4H] float32, the gate pre-activations xg + hg)."""
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    w_hh = whh.to(wt).to(f32)
+    g = (torch.matmul(x.to(wt).to(f32).reshape(n * b, hdim),
+                      wih.to(wt).to(f32))
+         + bih.to(f32).reshape(-1)).reshape(n, b, 4 * hdim)
+    hbuf = torch.empty((n + 1, b, hdim), dtype=wt, device=x.device)
+    hbuf[0] = h0.to(wt)
+    c_seq = torch.empty((n, b, hdim), dtype=wt, device=x.device)
+    h, c = h0.to(f32), c0.to(f32)
+    for t in range(n):
+        hg = torch.matmul(hbuf[t].to(f32), w_hh) + bhh.to(f32).reshape(-1)
+        g[t] = g[t] + hg
+        i, f, gg, o = _lstm_gates(g[t], hdim)
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
+        hbuf[t + 1] = h.to(wt)
+        c_seq[t] = c.to(wt)
+    return hbuf, c_seq, h, c, g
+
+
+def lstm_sequence_fwd(x, h0, c0, wih, bih, whh, bhh,
+                      weights_dtype="bfloat16"):
+    """K5 forward: the kernel on CUDA tensors, its plain version on CPU
+    tensors; arguments and results as ``lstm_sequence_fwd_plain``."""
+    if _on_cpu(x, h0, c0, wih, bih, whh, bhh):
+        return lstm_sequence_fwd_plain(x, h0, c0, wih, bih, whh, bhh,
+                                       weights_dtype)
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    xq = x.to(wt).contiguous()
+    w_ih, w_hh = wih.to(wt).contiguous(), whh.to(wt).contiguous()
+    b_ih = bih.to(f32).reshape(-1).contiguous()
+    b_hh = bhh.to(f32).reshape(-1).contiguous()
+    h0f, c0f = h0.to(f32).contiguous(), c0.to(f32).contiguous()
+    for t, name in ((w_ih, "wih"), (w_hh, "whh")):
+        _check(t, name, (wt,), (hdim, 4 * hdim))
+    for t, name in ((b_ih, "bih"), (b_hh, "bhh")):
+        _check(t, name, (f32,), (4 * hdim,))
+    for t, name in ((h0f, "h0"), (c0f, "c0")):
+        _check(t, name, (f32,), (b, hdim))
+    dev = x.device
+    g = torch.empty((n, b, 4 * hdim), dtype=f32, device=dev)
+    hbuf = torch.empty((n + 1, b, hdim), dtype=wt, device=dev)
+    c_seq = torch.empty((n, b, hdim), dtype=wt, device=dev)
+    hfin = torch.empty((b, hdim), dtype=f32, device=dev)
+    cfin = torch.empty_like(hfin)
+    _launch("lstm_sequence_fwd", xq.data_ptr(), h0f.data_ptr(),
+            c0f.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+            w_hh.data_ptr(), b_hh.data_ptr(), g.data_ptr(), hbuf.data_ptr(),
+            c_seq.data_ptr(), hfin.data_ptr(), cfin.data_ptr(), n, b, hdim,
+            int(wt == torch.bfloat16), _stream(x))
+    return hbuf, c_seq, hfin, cfin, g
+
+
+def lstm_sequence_bwd_plain(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin,
+                            dc_fin, weights_dtype="bfloat16"):
+    """Plain version of K5's backward kernel.  x, c0, wih, whh as the
+    forward; hbuf, c_seq, g its residuals; dh_seq [N, B, H]; dh_fin,
+    dc_fin [B, H].  Returns (dx [N, B, H] in the weights dtype, dh0, dc0
+    [B, H], dwih [H, 4H], dbih [4H], dwhh [H, 4H], dbhh [4H], all float32
+    but dx)."""
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    w_hh = whh.to(wt).to(f32)
+    dhs = dh_seq.to(wt)
+    dg = torch.empty((n, b, 4 * hdim), dtype=wt, device=x.device)
+    db = torch.zeros(4 * hdim, dtype=f32, device=x.device)
+    dh, dc = dh_fin.to(f32), dc_fin.to(f32)
+    for t in range(n - 1, -1, -1):
+        gh = dh + dhs[t].to(f32)
+        c_prev = c0.to(f32) if t == 0 else c_seq[t - 1].to(f32)
+        i, f, gg, o = _lstm_gates(g[t], hdim)
+        tc = torch.tanh(c_seq[t].to(f32))
+        d_o = gh * tc
+        dct = gh * o * (1.0 - tc * tc) + dc
+        di, df, dgg = dct * gg, dct * c_prev, dct * i
+        d = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                       dgg * (1.0 - gg * gg), d_o * o * (1.0 - o)], dim=1)
+        db += d.sum(0)
+        dg[t] = d.to(wt)
+        dh = torch.matmul(dg[t].to(f32), w_hh.T)
+        dc = dct * f
+    rows = n * b
+    dg2 = dg.to(f32).reshape(rows, 4 * hdim)
+    dx = torch.matmul(dg2, wih.to(wt).to(f32).T).to(wt).reshape(n, b, hdim)
+    dwih = torch.matmul(x.to(wt).to(f32).reshape(rows, hdim).T, dg2)
+    dwhh = torch.matmul(hbuf[:n].to(f32).reshape(rows, hdim).T, dg2)
+    return dx, dh, dc, dwih, db, dwhh, db.clone()
+
+
+def lstm_sequence_bwd(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin,
+                      dc_fin, weights_dtype="bfloat16"):
+    """K5 backward: the kernel on CUDA tensors, its plain version on CPU
+    tensors; arguments and results as ``lstm_sequence_bwd_plain``."""
+    if _on_cpu(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin, dc_fin):
+        return lstm_sequence_bwd_plain(x, c0, wih, whh, hbuf, c_seq, g,
+                                       dh_seq, dh_fin, dc_fin, weights_dtype)
+    wt = _weights_dtype(weights_dtype)
+    f32 = torch.float32
+    n, b, hdim = x.shape
+    xq = x.to(wt).contiguous()
+    w_ih, w_hh = wih.to(wt).contiguous(), whh.to(wt).contiguous()
+    c0f = c0.to(f32).contiguous()
+    dhs = dh_seq.to(wt).contiguous()
+    dhf, dcf = dh_fin.to(f32).contiguous(), dc_fin.to(f32).contiguous()
+    for t, name in ((w_ih, "wih"), (w_hh, "whh")):
+        _check(t, name, (wt,), (hdim, 4 * hdim))
+    _check(hbuf, "hbuf", (wt,), (n + 1, b, hdim))
+    _check(c_seq, "c_seq", (wt,), (n, b, hdim))
+    _check(g, "g", (f32,), (n, b, 4 * hdim))
+    _check(dhs, "dh_seq", (wt,), (n, b, hdim))
+    for t, name in ((c0f, "c0"), (dhf, "dh_fin"), (dcf, "dc_fin")):
+        _check(t, name, (f32,), (b, hdim))
+    dev = x.device
+    dg = torch.empty((n, b, 4 * hdim), dtype=wt, device=dev)
+    dx = torch.empty((n, b, hdim), dtype=wt, device=dev)
+    dh0 = torch.empty((b, hdim), dtype=f32, device=dev)
+    dc0 = torch.empty_like(dh0)
+    dwih = torch.empty((hdim, 4 * hdim), dtype=f32, device=dev)
+    dwhh = torch.empty_like(dwih)
+    dbih = torch.empty(4 * hdim, dtype=f32, device=dev)
+    dbhh = torch.empty_like(dbih)
+    _launch("lstm_sequence_bwd", xq.data_ptr(), c0f.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), hbuf.data_ptr(),
+            c_seq.data_ptr(), g.data_ptr(), dhs.data_ptr(), dhf.data_ptr(),
+            dcf.data_ptr(), dg.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), dwih.data_ptr(), dbih.data_ptr(),
+            dwhh.data_ptr(), dbhh.data_ptr(), n, b, hdim,
+            int(wt == torch.bfloat16), _stream(x))
+    return dx, dh0, dc0, dwih, dbih, dwhh, dbhh
+
+
+class _LstmSequence(torch.autograd.Function):
+    """Forward launches K5's forward kernel; backward its backward kernel
+    (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, hc0, wih, bih, whh, bhh, weights_dtype):
+        wt = _weights_dtype(weights_dtype)
+        xq = x.to(wt)
+        h0, c0 = hc0[0], hc0[1]
+        hbuf, c_seq, h_fin, c_fin, g = lstm_sequence_fwd(
+            xq, h0, c0, wih, bih, whh, bhh, wt)
+        ctx.save_for_backward(xq, c0, wih, whh, hbuf, c_seq, g)
+        ctx.meta = (wt, x.dtype, bih.shape, bhh.shape)
+        return (hbuf[1:].to(torch.float32, copy=True),
+                torch.stack([h_fin, c_fin]))
+
+    @staticmethod
+    def backward(ctx, dh_seq, dhc_fin):
+        xq, c0, wih, whh, hbuf, c_seq, g = ctx.saved_tensors
+        wt, x_dtype, bih_shape, bhh_shape = ctx.meta
+        if dh_seq is None:
+            dh_seq = torch.zeros(xq.shape, dtype=wt, device=xq.device)
+        if dhc_fin is None:
+            dhc_fin = torch.zeros((2,) + tuple(c0.shape),
+                                  dtype=torch.float32, device=c0.device)
+        dx, dh0, dc0, dwih, dbih, dwhh, dbhh = lstm_sequence_bwd(
+            xq, c0, wih, whh, hbuf, c_seq, g, dh_seq, dhc_fin[0],
+            dhc_fin[1], wt)
+        return (dx.to(x_dtype), torch.stack([dh0, dc0]), dwih.to(wih.dtype),
+                dbih.reshape(bih_shape), dwhh.to(whh.dtype),
+                dbhh.reshape(bhh_shape), None)
+
+
+def lstm_sequence(x_seq, hc0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
+    """Run an LSTM over x_seq [N, B, H_in == H] from hc0 [2, B, H] (h, c);
+    returns (h_seq [N, B, H] float32, hc_final [2, B, H] float32),
+    differentiable through K5's backward kernel."""
+    return _LstmSequence.apply(x_seq, hc0, wih, bih, whh, bhh, weights_dtype)

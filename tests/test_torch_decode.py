@@ -85,6 +85,45 @@ def test_fused_tier_frame_decode_matches_pallas(temp):
                     np.asarray(cond), jp["mlp"], temp, noise)
 
 
+@pytest.mark.parametrize("temp", [0.0, 0.8])
+def test_lstm_fused_tier_frame_decode_matches_pallas(temp):
+    """rnn_type="lstm" (the call form of tests/test_pallas.py:146-162):
+    equal samples, h and c within 1e-5."""
+    cfg = JCfg(frame_sizes=(F1, 2), dim=H, embed_dim=E, rnn_type="lstm",
+               compute_dtype="float32")
+    jp = jax.device_get(jsrnn.init_params(jax.random.PRNGKey(5), cfg))
+    tp = convert.params_from_jax(jp)
+    rng = np.random.default_rng(5)
+    window = rng.integers(0, Q, (B, F1), dtype=np.int32)
+    noise = rng.gumbel(size=(F1, B, Q)).astype(np.float32)
+    upper = rng.normal(size=(B, H)).astype(np.float32)
+    hc = rng.normal(size=(2, B, H)).astype(np.float32) * 0.5
+    want_s, want_h = jdec.fused_tier_frame_decode(
+        jnp.asarray(window), jnp.asarray(upper), jnp.asarray(hc), temp,
+        jax.random.PRNGKey(0), jp["tiers"][0], jp["mlp"], q_levels=Q,
+        rnn_type="lstm", weights_dtype="float32", interpret=True,
+        noise=jnp.asarray(noise))
+    got_s, got_h = tdec.fused_tier_frame_decode(
+        torch.from_numpy(window), torch.from_numpy(upper),
+        torch.from_numpy(hc), temp, tp["tiers"][0], tp["mlp"], q_levels=Q,
+        rnn_type="lstm", weights_dtype="float32",
+        noise=torch.from_numpy(noise))
+    assert got_h.shape == (2, B, H)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-5)
+    frame = window.astype(np.float32) / (Q / 2) - 1
+    cond, _ = jfr.tier_step(jp["tiers"][0], jnp.asarray(frame),
+                            jnp.asarray(upper), None, jnp.asarray(hc)[None],
+                            frame_size=F1, rnn_type="lstm",
+                            compute_dtype=jnp.float32)
+    _assert_samples(got_s.numpy(), np.asarray(want_s), window,
+                    np.asarray(cond), jp["mlp"], temp, noise)
+    with pytest.raises(ValueError, match="rnn_type='gru'"):
+        tdec.fused_tier_frame_decode(
+            torch.from_numpy(window), torch.from_numpy(upper),
+            torch.from_numpy(hc[:1]), temp, tp["tiers"][0], tp["mlp"],
+            weights_dtype="float32")
+
+
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors each wrapper computes its plain version and launches
     nothing."""
@@ -101,6 +140,9 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     hg = tdec.gemm_bias(h, tw["w_hh"], tw["b_hh"])
     torch.testing.assert_close(tdec.gru_gates(xg, hg, h),
                                tdec.gru_gates_plain(xg, hg, h))
+    g4 = torch.cat([xg, hg[:, :H]], dim=1)
+    for a, b in zip(tdec.lstm_gates(g4, h), tdec.lstm_gates_plain(g4, h)):
+        torch.testing.assert_close(a, b)
     cond = tdec.gemm_bias(h, tw["w_up"])
     out = torch.zeros((B, 2 * F1), dtype=torch.int32)
     got = tdec.frame_decode(win, cond, tw["b_up"], mw, 0.9, seed=5, pos0=7,

@@ -74,6 +74,53 @@ def test_generate_full_matches_megakernel(frame_sizes, temp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
 
+@pytest.mark.parametrize("stream_top", [False, True])
+@pytest.mark.parametrize("temp", [0.0, 0.8])
+def test_lstm_generate_full_matches_megakernel(stream_top, temp):
+    """The 3-tier LSTM (the form of config 2) against the megakernel in its
+    resident and top-streamed forms: equal samples, (h, c) within 1e-5."""
+    jc, _, jp, tp = _model((4, 2, 2), seed=9, rnn_type="lstm")
+    n_top, lookback, f1 = 3, jc.lookback, 4
+    rng = np.random.default_rng(10)
+    window = rng.integers(0, 256, (B, lookback), dtype=np.int32)
+    states = [rng.normal(size=(1, 2, B, 16)).astype(np.float32) * 0.5
+              for _ in range(3)]
+    gum = rng.gumbel(size=(n_top * lookback // f1, f1, B, 256)).astype(
+        np.float32)
+    blocks, jfin = generate_full_pallas(
+        jnp.asarray(window), tuple(jnp.asarray(s) for s in states), temp,
+        jnp.int32(0), list(jp["tiers"]), jp["mlp"], n_top=n_top,
+        deterministic=not temp, interpret=True, rnn_type="lstm",
+        weights_dtype="float32", stream_top=stream_top,
+        gumbel=jnp.asarray(gum) if temp else None)
+    want = np.asarray(jnp.moveaxis(blocks, 0, 1).reshape(B, -1))
+    got, tfin = tmega.generate_full(
+        torch.from_numpy(window), convert.state_from_jax(states), temp,
+        tp["tiers"], tp["mlp"], n_top=n_top, rnn_type="lstm",
+        weights_dtype="float32",
+        gumbel=torch.from_numpy(gum) if temp else None)
+    _assert_samples(got.numpy(), want, jp, jc, window,
+                    tuple(jnp.asarray(s) for s in states), temp, gum)
+    for a, b in zip(tfin, jfin):
+        assert a.shape == (1, 2, B, 16)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+@pytest.mark.parametrize("route", [True, "frame"])
+def test_lstm_generate_levels_greedy_matches_reference(route):
+    jc, tc, jp, tp = _model((4, 2, 2), seed=12, rnn_type="lstm")
+    t = jc.lookback * 3
+    want = np.asarray(jgen.generate_levels(jp, jc, B, t, temperature=None,
+                                           use_pallas=False))
+    tdec.reset_launches()
+    got = tgen.generate_levels(tp, tc, B, t, temperature=None,
+                               use_kernels=route, device="cpu").numpy()
+    _assert_samples(got, want, jp, jc,
+                    np.full((B, jc.lookback), 128, np.int32),
+                    jsrnn.initial_state(jp, jc, B))
+    assert set(tdec.LAUNCHES.values()) == {0}     # plain versions on CPU
+
+
 @pytest.mark.parametrize("frame_sizes", [(4, 2), (4, 2, 2)])
 @pytest.mark.parametrize("route", [True, "frame", False])
 def test_generate_levels_greedy_matches_reference(frame_sizes, route):
@@ -89,7 +136,7 @@ def test_generate_levels_greedy_matches_reference(frame_sizes, route):
                     jsrnn.initial_state(jp, jc, B))
 
 
-@pytest.mark.parametrize("rnn_type,n_rnn", [("lstm", 1), ("gru", 2)])
+@pytest.mark.parametrize("rnn_type,n_rnn", [("lstm", 2), ("gru", 2)])
 def test_plain_route_runs_models_outside_kernel_scope(rnn_type, n_rnn):
     jc, tc, jp, tp = _model((4, 2), seed=4, rnn_type=rnn_type, n_rnn=n_rnn)
     t = jc.lookback * 2
@@ -213,6 +260,27 @@ def test_make_generator_prepares_weights_once(monkeypatch):
     assert len(calls) == 3
 
 
+@pytest.mark.parametrize("rnn_type,wrong", [("gru", (1, 2, B, 16)),
+                                             ("lstm", (1, B, 16)),
+                                             ("lstm", (2, B, 16))])
+def test_decode_state_layout_follows_the_tier(rnn_type, wrong):
+    """A tier's model-layout state goes to the decode tuple and back
+    unchanged, and a state that does not fit the tier's gate count raises
+    ValueError before any kernel runs."""
+    _, _, _, tp = _model((4, 2), seed=13, rnn_type=rnn_type)
+    w_hh = tp["tiers"][0]["rnn"][0]["w_hh"]
+    shape = (1, B, 16) if rnn_type == "gru" else (1, 2, B, 16)
+    s = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    state = tdec.decode_state(s, w_hh)
+    assert len(state) == (1 if rnn_type == "gru" else 2)
+    torch.testing.assert_close(tdec.model_state(state), s, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="takes a state"):
+        tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
+                            (torch.zeros(wrong),) * 2, 0.0, tp["tiers"],
+                            tp["mlp"], n_top=1, rnn_type=rnn_type,
+                            weights_dtype="float32")
+
+
 def test_entry_points_and_scope():
     _, tc, _, tp = _model((4, 2), seed=7)
     if not torch.cuda.is_available():
@@ -233,8 +301,13 @@ def test_entry_points_and_scope():
                                            device="cpu")
     assert empty.shape == (B, 0) and hist.shape == (B, tc.lookback)
     assert tgen.next_pow2(5) == 8 and tgen.next_pow2(0) == 1
-    with pytest.raises(NotImplementedError):
+    _, _, _, stacked = _model((4, 2), seed=7, n_rnn=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
         tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
-                            (torch.zeros(1, B, 16),) * 2, 0.0, tp["tiers"],
-                            tp["mlp"], n_top=1, rnn_type="lstm")
+                            (torch.zeros(2, B, 16),) * 2, 0.0,
+                            stacked["tiers"], stacked["mlp"], n_top=1)
+    with pytest.raises(ValueError, match="rnn_type='lstm'"):
+        tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
+                            (torch.zeros(1, 2, B, 16),) * 2, 0.0,
+                            tp["tiers"], tp["mlp"], n_top=1, rnn_type="lstm")
     assert tdec.KERNELS.frame is tdec.frame_decode

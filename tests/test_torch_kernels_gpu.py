@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain versions, on the card, and
+"""The CUDA kernels K1-K6 against their plain versions, on the card, and
 the training route's behaviour on CUDA tensors.
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
@@ -27,9 +27,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(dev, dtype="float32", frame_sizes=(4, 2), dim=64):
+def _model(dev, dtype="float32", frame_sizes=(4, 2), dim=64,
+           rnn_type="gru"):
     cfg = SampleRNNConfig(frame_sizes=frame_sizes, dim=dim, embed_dim=16,
-                          compute_dtype=dtype)
+                          compute_dtype=dtype, rnn_type=rnn_type)
     params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
                                    dev)
     return cfg, params
@@ -63,6 +64,14 @@ def test_gru_gates_matches_plain(cuda):
     torch.testing.assert_close(kdec.gru_gates(xg, hg, h),
                                kdec.gru_gates_plain(xg, hg, h),
                                atol=2e-6, rtol=0)
+
+
+def test_lstm_gates_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(6)
+    g = torch.randn(7, 2 * 4 * 33, generator=gen).to(cuda)[:, 4 * 33:]
+    c = torch.randn(7, 2 * 33, generator=gen).to(cuda)[:, :33]
+    for a, b in zip(kdec.lstm_gates(g, c), kdec.lstm_gates_plain(g, c)):
+        torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
 
 
 @pytest.mark.parametrize("temp,supplied", [(0.0, False), (0.9, False),
@@ -101,6 +110,27 @@ def test_generate_full_matches_plain_f32(cuda, frame_sizes, temp):
                                            **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     for a, c in zip(gs, ws):
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.9])
+def test_lstm_generate_full_matches_plain_f32(cuda, temp):
+    cfg, params = _model(cuda, frame_sizes=(4, 2, 2), rnn_type="lstm")
+    b = 4
+    window = torch.full((b, cfg.lookback), 128, dtype=torch.int32,
+                        device=cuda)
+    states = samplernn.initial_state(params, cfg, b)
+    kw = dict(n_top=3, rnn_type="lstm", weights_dtype="float32", seed=5)
+    kdec.reset_launches()
+    got, gs = megagen.generate_full(window, states, temp, params["tiers"],
+                                    params["mlp"], **kw)
+    assert kdec.LAUNCHES["lstm_gates"] and not kdec.LAUNCHES["gru_gates"]
+    want, ws = megagen.generate_full_plain(window, states, temp,
+                                           params["tiers"], params["mlp"],
+                                           **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, c in zip(gs, ws):
+        assert a.shape == (1, 2, b, cfg.dim)
         torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
 
 
@@ -173,8 +203,62 @@ def test_gru_sequence_kernels_match_plain(cuda, dtype, n, b, h):
         assert torch.equal(g, w)
 
 
-def test_lstm_train_route_raises_on_cuda(cuda):
-    cfg = SampleRNNConfig(frame_sizes=(4, 2), dim=16, embed_dim=8,
+# ----------------------------------------------- K5 lstm_sequence --
+
+def _lstm_inputs(dev, n, b, h, seed=7):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    return dict(x=rnd(n, b, h), h0=rnd(b, h, scale=0.5),
+                c0=rnd(b, h, scale=0.5), wih=rnd(h, 4 * h, scale=h ** -0.5),
+                bih=rnd(4 * h, scale=0.1), whh=rnd(h, 4 * h, scale=h ** -0.5),
+                bhh=rnd(4 * h, scale=0.1), dh_seq=rnd(n, b, h),
+                dh_fin=rnd(b, h), dc_fin=rnd(b, h))
+
+
+# tolerances as K4's above
+@pytest.mark.parametrize("dtype,n,b,h", [("float32", 6, 4, 128),
+                                         ("float32", 3, 130, 40),
+                                         ("float32", 4, 64, 1024),
+                                         ("bfloat16", 5, 16, 256),
+                                         ("bfloat16", 3, 130, 40),
+                                         ("bfloat16", 64, 64, 1024)])
+def test_lstm_sequence_kernels_match_plain(cuda, dtype, n, b, h):
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    a = _lstm_inputs(cuda, n, b, h)
+    fargs = (a["x"], a["h0"], a["c0"], a["wih"], a["bih"], a["whh"],
+             a["bhh"], dtype)
+    rt.reset_launches()
+    got = rt.lstm_sequence_fwd(*fargs)
+    want = rt.lstm_sequence_fwd_plain(*fargs)
+    atol, rel = (1e-5, 0.0) if dtype == "float32" else (0.0, 2 ** -7)
+    for g, w in zip(got, want):
+        _near(g, w, atol, rel)
+    hbuf, c_seq, _, _, g4 = want
+    bargs = (a["x"], a["c0"], a["wih"], a["whh"], hbuf, c_seq, g4,
+             a["dh_seq"], a["dh_fin"], a["dc_fin"], dtype)
+    got = rt.lstm_sequence_bwd(*bargs)
+    want = rt.lstm_sequence_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dh0", "dc0", "dwih", "dbih", "dwhh",
+                           "dbhh"), got, want):
+        if dtype == "float32":
+            _near(g, w, 1e-5, 1e-5 if name[:2] in ("dw", "db") else 0.0)
+        else:
+            _near(g, w, 0.0, 2 ** -7)
+    again = rt.lstm_sequence_bwd(*bargs)
+    for g, w in zip(got, again):
+        assert torch.equal(g, w)
+    assert rt.LAUNCHES["lstm_sequence_fwd"] == 1
+    assert rt.LAUNCHES["lstm_sequence_bwd"] == 2
+
+
+def test_ineligible_lstm_train_route_raises_on_cuda(cuda):
+    """An LSTM width K5 does not tile raises on the card instead of
+    scanning."""
+    cfg = SampleRNNConfig(frame_sizes=(4, 2), dim=100, embed_dim=8,
                           rnn_type="lstm", compute_dtype="float32",
                           pallas_train_rnn=True)
     params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
@@ -182,7 +266,7 @@ def test_lstm_train_route_raises_on_cuda(cuda):
     state = samplernn.initial_state(params, cfg, 2)
     inputs = torch.randint(0, 256, (2, cfg.lookback + 16),
                            dtype=torch.int32).to(cuda)
-    with pytest.raises(NotImplementedError, match="B6"):
+    with pytest.raises(ValueError, match="not a multiple of 8"):
         samplernn.forward(params, cfg, inputs, state)
 
 
@@ -206,13 +290,17 @@ def test_ineligible_gru_train_route_raises_on_cuda(cuda, flag):
     assert torch.isfinite(logits).all()
 
 
-def test_train_step_kernel_route_matches_scan(cuda):
+@pytest.mark.parametrize("rnn_type,frame_sizes", [("gru", (4, 2)),
+                                                  ("lstm", (4, 2, 2))])
+def test_train_step_kernel_route_matches_scan(cuda, rnn_type, frame_sizes):
     import dataclasses
 
     from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
     from samplernn_pase_tpu_torch.train.optim import make_optimizer
     from samplernn_pase_tpu_torch.train.trainer import make_train_step
-    cfg, params = _model(cuda, dim=64)
+    cfg, params = _model(cuda, dim=64, frame_sizes=frame_sizes,
+                         rnn_type=rnn_type)
+    names = (f"{rnn_type}_sequence_fwd", f"{rnn_type}_sequence_bwd")
     tx = make_optimizer(1e-3, 1.0)
     gen = torch.Generator().manual_seed(5)
     x = torch.randint(0, 256, (3, cfg.lookback * 5), generator=gen,
@@ -225,7 +313,8 @@ def test_train_step_kernel_route_matches_scan(cuda):
         out[flag] = make_train_step(c, tx)(
             params, tx.init(params), samplernn.initial_state(params, c, 3),
             x, x[:, c.lookback:], resets)
-        assert all(rt.LAUNCHES.values()) == flag, rt.LAUNCHES
+        counts = [rt.LAUNCHES[k] for k in names]
+        assert counts == ([cfg.n_tiers] * 2 if flag else [0, 0]), rt.LAUNCHES
     assert abs(out[True][3].item() - out[False][3].item()) < 1e-5
     for a, c in zip(out[True][2], out[False][2]):
         torch.testing.assert_close(a, c, atol=1e-5, rtol=0)

@@ -116,21 +116,20 @@ def test_forward_and_nll_match_jax(case):
 
 @pytest.mark.parametrize("flag,rnn_type,raises", [
     (True, "gru", ValueError), ("auto", "gru", ValueError),
-    (True, "lstm", NotImplementedError), ("auto", "lstm", NotImplementedError),
+    (True, "lstm", ValueError), ("auto", "lstm", ValueError),
     (False, "gru", None), (False, "lstm", None)])
 def test_cuda_route_refuses_what_the_kernel_cannot_take(flag, rnn_type,
                                                         raises):
-    """On CUDA only pallas_train_rnn=False scans: a GRU tier of a width
-    the kernel does not tile (dim 100, not a multiple of 8) or an LSTM
-    tier raises under True/"auto".  The width is refused before the
-    kernel library is asked, so no card is needed."""
+    """On CUDA only pallas_train_rnn=False scans: a GRU or LSTM tier of a
+    width the sequence kernels do not tile (dim 100, not a multiple of 8)
+    raises under True/"auto".  The width is refused before the kernel
+    library is asked, so no card is needed."""
     cfg = TCfg(**{**BASE, "dim": 100, "rnn_type": rnn_type,
                   "pallas_train_rnn": flag})
     if raises is None:
         assert tsrnn._rnn_route(cfg, 0, torch.device("cuda")) is False
         return
-    with pytest.raises(raises, match="B6" if rnn_type == "lstm"
-                       else "dim 100 is not a multiple of 8"):
+    with pytest.raises(raises, match="dim 100 is not a multiple of 8"):
         tsrnn._rnn_route(cfg, 0, torch.device("cuda"))
 
 
