@@ -42,8 +42,30 @@ Phases (any failure ends the run with a non-zero exit):
    one timed): K5 forward and backward launch 3 times per step (one per
    tier), the NLL is finite and falls, and one step agrees with the scan
    route as in phase 4;
-7. a {"kernels": [...]} line, then the last line
+7. config 4's conditioned generation (configs/c4_tts_conditioned.json:
+   2-tier GRU, frame_sizes (16, 4), dim 1024, cond_dim 256, cond_rate
+   160, bf16) with random weights and random cond rows from a seed, B=128,
+   4,096 samples: one sampled request with per-lane cond positions (phases
+   spread over 0..159), lane keys and noise positions at the config's
+   T=1.0, the same request greedy, a shared-seed request and the same
+   through make_generator(conditioned=True, use_kernels="frame"), which
+   must be equal, and the per-lane request split into 4 calls, which must
+   equal it bit for bit; exact K1, K2 (and its conditioning mode), K3 and
+   K1 lane-key launch counts; rescoring >= 0.99 on the first 1,024
+   samples;
+8. config 4 stream serving: StreamPool(n_lanes=128, T=1.0), 8 chunks of
+   1,024 samples with joins, stops, slot reuse and extend_cond between
+   them; exact launch counts; four lanes bit-equal to solo B=1
+   StreamingGenerators on the card; per-chunk wall time, samples/s and
+   the device's idle share;
+9. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", ...}}.
+
+Phase 2 also holds config 4's kernel modes against their plain versions:
+K2's conditioning epilogue at both tier inputs (exact against K2 without
+it plus the selected row, at positions that take and skip the two-row
+bump) and at the projection of the cond rows, and K1's per-lane-key noise
+(mode 3), with lane batch independence.
 
 It imports nothing of JAX.  Without a CUDA device, or run from a
 directory without the port beside it, it exits non-zero and prints no
@@ -67,6 +89,11 @@ LENGTH = 1024           # samples per request: 16 flagship top frames
 SEQ_LEN = 1024          # TBPTT chunk, as scripts/bench_train.py
 C2_LENGTH = 4096        # samples per config-2 request: 16 top frames
 C2_RESCORE = 1024       # samples of it rescored through the plain modules
+C4_LENGTH = 4096        # samples per config-4 request: 64 top frames
+C4_RESCORE = 1024
+C4_ROWS = 512           # cond rows per lane of a config-4 request
+C4_CHUNK = 1024         # pool chunk: 64 ms of 16 kHz audio
+C4_CHUNKS = 8
 
 
 class SmokeFailure(Exception):
@@ -562,9 +589,10 @@ def check_gemm(torch, dev, kdec, cases, path: str):
     "lib", "bound", "by": {bound_by: launches}}, or raises SmokeFailure."""
     st = {"err": 0.0, "launches": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
           "bound": 0.0, "by": {}}
-    for name, a, w, bias, add, lq, runs in cases:
-        got = kdec.gemm_bias(a, w, bias, add, levels_q=lq)
-        want = kdec.gemm_bias_plain(a, w, bias, add, levels_q=lq)
+    for name, a, w, bias, add, lq, runs, *kw in cases:
+        kw = kw[0] if kw else {}
+        got = kdec.gemm_bias(a, w, bias, add, levels_q=lq, **kw)
+        want = kdec.gemm_bias_plain(a, w, bias, add, levels_q=lq, **kw)
         torch.cuda.synchronize()
         m, k = a.shape
         n = w.shape[1]
@@ -574,24 +602,32 @@ def check_gemm(torch, dev, kdec, cases, path: str):
         tol = 2 * k * 2.0 ** -24 * scale + 1e-6 * (1 + want.abs().max().item())
         err = (got - want).abs().max().item()
         ms, wall = device_ms(torch, lambda: kdec.gemm_bias(
-            a, w, bias, add, levels_q=lq), 20)
+            a, w, bias, add, levels_q=lq, **kw), 20)
         pms, _ = device_ms(torch, lambda: kdec.gemm_bias_plain(
-            a, w, bias, add, levels_q=lq), 20)
+            a, w, bias, add, levels_q=lq, **kw), 20)
         a_lib = af.to(w.dtype)
         bias_lib = (bias if bias is not None
                     else torch.zeros(n, device=dev)).to(w.dtype)
-        if add is None:
+        lib_add = add
+        if kw:
+            # the library cannot select a row per lane: the yardstick is
+            # addmm with the selected rows folded into its added input
+            row = ext_row(torch, **kw)
+            lib_add = row if add is None else add + row
+        if lib_add is None:
             lms, _ = device_ms(torch, lambda: torch.addmm(bias_lib, a_lib, w),
                                20)
         else:
             # (A @ W + bias) + add as one library call: addmm with the
             # bias folded into add
-            add_lib = (add + bias).to(w.dtype)
+            add_lib = (lib_add + bias_lib.float()).to(w.dtype)
             lms, _ = device_ms(torch, lambda: torch.addmm(add_lib, a_lib, w),
                                20)
+        # conditioning reads each row's selected ext row and its phase
         nbytes = (a.numel() * 4 + w.numel() * w.element_size()
                   + (n * 4 if bias is not None else 0)
-                  + (m * n * 4 if add is not None else 0) + m * n * 4)
+                  + (m * n * 4 if add is not None else 0) + m * n * 4
+                  + (m * n * 4 + m * 4 if kw else 0))
         bms, by = bound(nbytes, 2.0 * m * n * k,
                         PEAK_BF16 if w.dtype == torch.bfloat16 else PEAK_F32)
         print(f"K2 {path} {name:16s} [{m},{k}]@[{k},{n}] {w.dtype} err "
@@ -610,6 +646,126 @@ def check_gemm(torch, dev, kdec, cases, path: str):
     for key in ("ms", "plain", "lib", "bound"):
         st[key] /= st["launches"]
     return st
+
+
+def ext_row(torch, ext, cphase, pos, cond_rate):
+    """The conditioning row K2's epilogue adds to each output row: row
+    pos // cond_rate, or the next (clamped to the last) where the lane's
+    phase carries it over (megagen.py:211-219)."""
+    base = pos // cond_rate
+    hi = min(base + 1, ext.shape[0] - 1)
+    bump = (cphase.long() + pos % cond_rate >= cond_rate)[:, None]
+    return torch.where(bump, ext[hi], ext[base])
+
+
+def c4_request(torch, dev, cfg, b: int):
+    """Config 4's request inputs from a seed: cond [B, C4_ROWS, cond_dim]
+    normal rows; cond_pos0 [B], lane b at row b % 5 plus a phase spread
+    over 0 .. cond_rate - 1; lane keys noise.lane_key(4, b, 0); noise_pos0
+    [B] = 3b."""
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cond = torch.randn(b, C4_ROWS, cfg.cond_dim, device=dev, generator=gen)
+    lane = torch.arange(b, device=dev)
+    rate = cfg.cond_rate
+    cpos = (lane % 5) * rate + (lane * (rate - 1)) // (b - 1)
+    keys = np.stack([lane_key(4, i, 0) for i in range(b)])
+    return cond, cpos, keys, lane * 3
+
+
+def c4_kernel_checks(torch, dev, kdec, tgen, cfg, weights, b: int,
+                     calls: int):
+    """Config 4's kernel modes against their plain versions (phase 2): K2's
+    conditioning epilogue at both tier inputs, exactly K2 without it plus
+    the selected row at positions that take and skip the bump, then timed
+    with the cond projection through check_gemm (launch weights: ``calls``
+    requests of C4_LENGTH samples); K1's lane-key mode (rescoring against
+    its plain version, a lane alone equal to the same lane in the batch),
+    timed.  Returns (K2 conditioning stats, projection stats, K1 stats:
+    {"err", "ms", "plain", "bound", "by", "agree"}), or raises
+    SmokeFailure."""
+    q, hd, f1 = cfg.q_levels, cfg.dim, cfg.frame_sizes[0]
+    n_top = C4_LENGTH // cfg.lookback
+    gen = torch.Generator(device=dev).manual_seed(22)
+    win = torch.randint(0, q, (b, cfg.lookback), device=dev, generator=gen,
+                        dtype=torch.int32)
+    upper = torch.randn(b, hd, device=dev, generator=gen)
+    cond, cpos, keys, npos = c4_request(torch, dev, cfg, b)
+    ext, phase, rate = tgen.project_cond(weights, cfg, cond, cpos, C4_LENGTH)
+    tiers = weights["tiers"]
+    for k, tw in enumerate(tiers):
+        a, up = win[:, -cfg.tier_spans[k]:], (upper if k == 0 else None)
+        base = kdec.gemm_bias(a, tw["w_in"], tw["b_in"], up, levels_q=q)
+        for pos in (0, rate * 5 // 8, C4_LENGTH // 4 + rate // 4,
+                    C4_LENGTH - cfg.tier_spans[k]):
+            kw = dict(ext=ext[k], cphase=phase, pos=pos, cond_rate=rate)
+            bumped = (phase.long() + pos % rate >= rate).sum().item()
+            got = kdec.gemm_bias(a, tw["w_in"], tw["b_in"], up, levels_q=q,
+                                 **kw)
+            require(torch.equal(got, base + ext_row(torch, **kw)),
+                    f"gemm_bias conditioning, tier {k}, pos {pos}: not K2 "
+                    "plus the selected row")
+            print(f"K2 config 4 tier{k} input +cond pos {pos}: equal to K2 "
+                  f"+ the selected row ({bumped} of {b} lanes on the next "
+                  f"row, {ext[k].shape[0]} rows)")
+    cond_cases = [
+        (f"tier1 input +cond", win[:, -cfg.tier_spans[1]:], tiers[1]["w_in"],
+         tiers[1]["b_in"], None, q, calls * n_top,
+         dict(ext=ext[1], cphase=phase, pos=rate * 5 // 8,
+              cond_rate=rate)),
+        (f"tier0 input +up +cond", win[:, -f1:], tiers[0]["w_in"],
+         tiers[0]["b_in"], upper, q, calls * n_top * cfg.frame_sizes[1],
+         dict(ext=ext[0], cphase=phase, pos=rate * 5 // 8,
+              cond_rate=rate))]
+    need = ext[0].shape[0]
+    idx = ((cpos // rate)[:, None] + torch.arange(need, device=dev)).clamp(
+        0, cond.shape[1] - 1)
+    rows = cond.gather(1, idx[:, :, None].expand(b, need, cond.shape[2]))
+    proj_cases = [("cond projection", rows.reshape(b * need, -1),
+                   tiers[0]["w_cond"], None, None, 0, calls * len(tiers))]
+    k2c = check_gemm(torch, dev, kdec, cond_cases, "config 4")
+    k2p = check_gemm(torch, dev, kdec, proj_cases, "config 4")
+
+    # K1 noise mode 3: per-lane keys and positions
+    mw, t0 = weights["mlp"], tiers[0]
+    h = torch.randn(b, hd, device=dev, generator=gen) * 0.5
+    crow = kdec.gemm_bias(h, t0["w_up"])
+    fwin = win[:, -f1:]
+    lane_pos = (npos * 7 + 11).contiguous()
+    args = (fwin, crow, t0["b_up"], mw, 1.0, None, 0, 500)
+    # the keys in the form the generation loop passes, converted once
+    keys = kdec.kernel_lane_keys(keys, dev)
+    kw = dict(lane_keys=keys, lane_pos=lane_pos)
+    got = kdec.frame_decode(*args, **kw)
+    again = kdec.frame_decode_plain(*args, forced=got, **kw)
+    agree = (again == got).float().mean().item()
+    one = kdec.frame_decode(fwin[5:6], crow[5:6], t0["b_up"], mw, 1.0, None,
+                            0, 500, lane_keys=keys[5:6],
+                            lane_pos=lane_pos[5:6])
+    require(torch.equal(one[0], got[5]),
+            "frame_decode lane keys: lane 5 alone differs from lane 5 in the "
+            "batch")
+    require(agree >= 0.99, f"frame_decode lane keys bf16: rescoring "
+            f"agreement {agree} < 0.99")
+    ms, wall = device_ms(torch, lambda: kdec.frame_decode(*args, **kw), 10)
+    pms, _ = device_ms(torch, lambda: kdec.frame_decode_plain(*args, **kw), 3)
+    seq = torch.cat([fwin, got], dim=1).long()
+    slots = torch.stack([seq[:, i:i + f1] for i in range(f1)])
+    n_rows = (torch.arange(f1, device=dev) * q + slots).unique().numel()
+    nbytes = (b * f1 * 4 + b * f1 * hd * 4 + f1 * hd * 4 + n_rows * hd * 2
+              + (hd * hd + hd * q) * 2 + (2 * hd + q) * 4 + b * f1 * 4
+              + b * 2 * 4 + b * 8)
+    bd, by = bound(nbytes, 2.0 * b * f1 * (hd * hd + hd * q), PEAK_BF16)
+    print(f"K1 frame_decode lane keys [B={b}, f1={f1}] bf16 rescoring "
+          f"agreement {agree:.4f}, lane 5 alone equal to lane 5 in the "
+          f"batch; {ms * 1e3:.1f} us (wall per call {wall * 1e3:.1f} us), "
+          f"plain {pms * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}, "
+          f"{n_rows} W' rows)")
+    k1 = {"err": 0.0, "ms": ms, "plain": pms, "bound": bd, "by": by,
+          "agree": agree}
+    return k2c, k2p, k1
 
 
 def check_lstm_gates(torch, dev, kdec, b: int, hdim: int):
@@ -818,6 +974,234 @@ def c2_train_path(torch, dev, exp, card):
     return launches
 
 
+def c4_launches(cfg, n: int, lane_keys: bool) -> dict:
+    """Decode-kernel launches of one conditioned call of n samples on a
+    2-tier GRU: per top frame 20 K2 (tier input, two gates, upsample per
+    tier step; 1 + frame_sizes[1] steps), 5 K3, frame_sizes[1] K1, of
+    which the tier inputs take the conditioning epilogue; per call one K2
+    projection per tier."""
+    n_top = n // cfg.lookback
+    steps = 1 + cfg.frame_sizes[1]
+    k1 = n_top * cfg.frame_sizes[1]
+    return {"frame_decode": k1, "gemm_bias": n_top * 4 * steps + 2,
+            "gru_gates": n_top * steps, "lstm_gates": 0,
+            "gemm_bias_cond": n_top * steps,
+            "frame_decode_lane_keys": k1 if lane_keys else 0}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in total | more}
+
+
+def c4_generation(torch, dev, exp, params, weights, card):
+    """Config 4's conditioned generation on the kernel route at B=128:
+    the per-lane request (cond positions, lane keys, noise positions) at
+    the config's temperature, greedy, a shared-seed request equal to
+    make_generator(conditioned=True, use_kernels="frame")'s, and the
+    per-lane request in 4 calls, equal to the one; exact launch counts,
+    levels, rescoring and the profiler split.  Returns the decode kernels'
+    launch counts, or raises SmokeFailure."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+
+    cfg, temp = exp.model, exp.generate.temperature
+    b, q, n = BATCH, cfg.q_levels, C4_LENGTH
+    cond, cpos, keys, npos = c4_request(torch, dev, cfg, b)
+    lane = dict(cond=cond, cond_pos0=cpos, lane_keys=keys, noise_pos0=npos,
+                device=dev, kernel_weights=weights)
+    kdec.reset_launches()
+    t0 = time.perf_counter()
+    sampled = tgen.generate_levels(params, cfg, b, n, temp, **lane)
+    torch.cuda.synchronize()
+    t_sampled = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    greedy = tgen.generate_levels(params, cfg, b, n, None, **lane)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    shared = tgen.generate_levels(params, cfg, b, n, temp, seed=1, cond=cond,
+                                  device=dev, kernel_weights=weights)
+    frame = tgen.make_generator(cfg, b, n, temp, conditioned=True,
+                                use_kernels="frame", device=dev)(
+        params, 1, cond)
+    parts, st, hist = [], None, None
+    for i in range(4):
+        piece = n // 4
+        lv, st, hist = tgen.generate_levels(
+            params, cfg, b, piece, temp, initial_states=st, hist=hist,
+            return_state=True, **dict(lane, cond_pos0=cpos + i * piece,
+                                      noise_pos0=npos + i * piece))
+        parts.append(lv)
+    torch.cuda.synchronize()
+    launches = dict(kdec.LAUNCHES)
+    want = {}
+    for calls, length, keyed in ((1, n, True), (3, n, False),
+                                 (4, n // 4, True)):
+        for _ in range(calls):
+            want = add_counts(want, c4_launches(cfg, length, keyed))
+    want["gemm_bias"] += cfg.frame_sizes[0]   # make_generator's MLP fold
+    print(f"config 4 generation launches (4 requests, one split in 4 "
+          f"calls): {launches}")
+    require(launches == want, f"config 4 launches {launches}, expected "
+            f"{want}")
+    for name, lv in (("sampled", sampled), ("greedy", greedy),
+                     ("shared", shared), ("frame", frame)):
+        require(lv.shape == (b, n) and lv.dtype == torch.int32,
+                f"config 4 {name}: shape {tuple(lv.shape)} {lv.dtype}")
+        require(lv.min().item() >= 0 and lv.max().item() < q,
+                f"config 4 {name}: levels outside [0, {q})")
+    require(torch.equal(frame, shared),
+            "config 4: make_generator(conditioned=True, use_kernels="
+            "'frame') differs from the same request through "
+            "generate_levels")
+    require(torch.equal(torch.cat(parts, 1), sampled),
+            "config 4: the request split into 4 calls differs from one call")
+    agree_s = tgen.rescore(params, cfg, sampled[:, :C4_RESCORE], temp,
+                           noise_pos0=npos, cond=cond, cond_pos0=cpos,
+                           lane_keys=keys)
+    agree_g = tgen.rescore(params, cfg, greedy[:, :C4_RESCORE], None,
+                           cond=cond, cond_pos0=cpos)
+    print(f"config 4 rescoring agreement (plain per-step modules, bf16, "
+          f"same cond rows and lane noise, first {C4_RESCORE} samples): "
+          f"sampled {agree_s:.4f}, greedy {agree_g:.4f}; make_generator's "
+          "request equal to generate_levels'; 4 calls equal to one")
+    require(min(agree_s, agree_g) >= 0.99,
+            "config 4 rescoring agreement below 0.99")
+    t0 = time.perf_counter()
+    times = kernel_times(torch, lambda: tgen.generate_levels(
+        params, cfg, b, n, temp, **lane))
+    wall = (time.perf_counter() - t0) * 1e3
+    groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
+              "gru_gates": [0.0, 0], "other": [0.0, 0]}
+    for key, (t, cnt) in times.items():
+        g = next((g for g in groups if g in key), "other")
+        groups[g][0] += t
+        groups[g][1] += cnt
+    busy = sum(t for t, _ in groups.values())
+    n_top = n // cfg.lookback
+    print(f"config 4 profiled per-lane request: wall {wall:.1f} ms "
+          f"(profiler on), device busy {busy:.1f} ms ({busy / n_top:.2f} ms "
+          f"per top frame), idle share {1 - busy / (t_sampled * 1e3):.3f} "
+          f"of the unprofiled request's {t_sampled * 1e3:.1f} ms; "
+          + ", ".join(f"{g} {t:.1f} ms/{c}" for g, (t, c) in
+                      groups.items()))
+    print(f"config 4 conditioned generation, B={b}, {n} samples: sampled "
+          f"(T={temp}, lane keys) {b * n / t_sampled:,.0f} samples/s "
+          f"({t_sampled:.3f} s, {t_sampled * 1e3 / n_top:.2f} ms per top "
+          f"frame of {cfg.lookback} samples), greedy "
+          f"{b * n / t_greedy:,.0f} samples/s ({t_greedy:.3f} s); on {card}")
+    return launches
+
+
+def c4_serving(torch, dev, exp, params, card):
+    """Config 4's stream serving: StreamPool(n_lanes=128) at the config's
+    temperature, C4_CHUNKS chunks of C4_CHUNK samples.  Lanes 0-95 start
+    at chunk 0 with streams of 50-400 rows (lanes 40-47 on a 10-row
+    prefix, extended at chunk 2), 96-127 join at chunk 3, 16-31 stop at
+    chunk 4 and restart on new streams at chunk 5.  Exact launch counts;
+    lanes 0, 20, 40 and 100 bit-equal to solo B=1 StreamingGenerators with
+    their streams and keys; per-chunk wall time, samples/s and the idle
+    share.  Returns the pool's launch counts, or raises SmokeFailure."""
+    import numpy as np
+
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    from samplernn_pase_tpu_torch.serve import StreamPool
+
+    cfg, temp = exp.model, exp.generate.temperature
+    n_lanes, chunk, seed = BATCH, C4_CHUNK, 31
+    rng = np.random.default_rng(32)
+
+    def stream(rows):
+        return rng.standard_normal((rows, cfg.cond_dim), np.float32)
+
+    streams = {lane: stream(50 + lane * 350 // 95) for lane in range(96)}
+    late = {lane: stream(50 + (lane - 96) * 350 // 31)
+            for lane in range(96, 128)}
+    fresh = {lane: stream(60 + 9 * (lane - 16)) for lane in range(16, 32)}
+    extended = range(40, 48)
+    pool = StreamPool(params, cfg, n_lanes=n_lanes, temperature=temp,
+                      seed=seed, device=dev)
+    kdec.reset_launches()
+    walls, life, outs = [], 0.0, []
+    for c in range(C4_CHUNKS):
+        t0 = time.perf_counter()
+        if c == 0:
+            for lane, rows in streams.items():
+                got = pool.start(cond=rows[:10] if lane in extended
+                                 else rows)
+                require(got == lane, f"lane {got} claimed, expected {lane}")
+        if c == 2:
+            for lane in extended:
+                pool.extend_cond(lane, streams[lane][10:])
+        if c == 3:
+            for lane, rows in late.items():
+                pool.start(cond=rows, lane=lane)
+        if c == 4:
+            for lane in fresh:
+                pool.stop(lane)
+        if c == 5:
+            for lane, rows in fresh.items():
+                pool.start(cond=rows, lane=lane)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs.append(pool.emit(chunk))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        life += t1 - t0
+    launches = dict(kdec.LAUNCHES)
+    want = {}
+    for _ in range(C4_CHUNKS):
+        want = add_counts(want, c4_launches(cfg, chunk, True))
+    want["gemm_bias"] += cfg.frame_sizes[0]   # kernel weights, first emit
+    print(f"config 4 pool launches ({C4_CHUNKS} chunks): {launches}")
+    require(launches == want, f"pool launches {launches}, expected {want}")
+    for lv in outs:
+        require(lv.shape == (n_lanes, chunk) and lv.min().item() >= 0
+                and lv.max().item() < cfg.q_levels,
+                "pool chunk: wrong shape or levels outside [0, q)")
+    # solo B=1 streams on the card: (lane, first chunk, epoch, streams
+    # to attach before chunk index)
+    solos = ((0, 0, 0, {0: streams[0]}),
+             (100, 3, 0, {0: late[100]}),
+             (20, 5, 1, {0: fresh[20]}),
+             (40, 0, 0, {0: streams[40][:10], 2: streams[40]}))
+    for lane, first, epoch, attach in solos:
+        sg = tgen.StreamingGenerator(params, cfg, 1, temperature=temp,
+                                     stream_keys=lane_key(seed, lane, epoch),
+                                     device=dev)
+        solo = []
+        for c in range(C4_CHUNKS - first):
+            if c in attach:
+                sg.set_cond(attach[c])
+            solo.append(sg.emit(chunk)[0])
+        got = torch.cat([o[lane] for o in outs[first:]])
+        same = (got == torch.cat(solo)).float().mean().item()
+        print(f"pool lane {lane} (from chunk {first}, key epoch {epoch}"
+              f"{', extended at chunk 2' if len(attach) > 1 else ''}) "
+              f"against a solo B=1 StreamingGenerator: {same:.4f} of "
+              f"{got.numel()} samples equal")
+        require(same == 1.0, f"pool lane {lane} differs from its solo "
+                "stream")
+    t0 = time.perf_counter()
+    times = kernel_times(torch, lambda: pool.emit(chunk))
+    pwall = (time.perf_counter() - t0) * 1e3
+    busy = sum(t for t, _ in times.values())
+    med = sorted(walls)[len(walls) // 2]
+    total = sum(walls)
+    n_top = chunk // cfg.lookback
+    print(f"config 4 pool, {n_lanes} lanes, {C4_CHUNKS} chunks of {chunk} "
+          f"samples ({chunk * 1e3 / 16000:.0f} ms of audio): per-chunk wall "
+          f"median {med * 1e3:.1f} ms, max {max(walls) * 1e3:.1f} ms (first "
+          f"{walls[0] * 1e3:.1f} ms), "
+          f"{n_lanes * chunk * C4_CHUNKS / total:,.0f} lane-samples/s "
+          f"({med * 1e3 / n_top:.2f} ms per top frame); lifecycle calls "
+          f"{life * 1e3:.1f} ms in all; one profiled chunk: device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / (med * 1e3):.3f} of the "
+          f"median chunk (profiler on: wall {pwall:.1f} ms); on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -872,6 +1256,13 @@ def main() -> int:
                     "disagree on the model")
     exp2 = dataclasses.replace(exp2, model=model2)
     c2_tiers = tuple(exp2.train.seq_len // s for s in exp2.model.tier_spans)
+    # config 4 (conditioned TTS), checked the same way
+    exp4 = load_config(ROOT / "configs" / "c4_tts_conditioned.json")
+    model4 = preset("c4_tts_conditioned").model
+    if dataclasses.replace(exp4.model, mlp_hidden=0) != model4:
+        return fail("configs/c4_tts_conditioned.json and "
+                    "preset('c4_tts_conditioned') disagree on the model")
+    exp4 = dataclasses.replace(exp4, model=model4)
 
     # ---- flagship model (random weights from a seed) ----
     cfg = SampleRNNConfig(frame_sizes=(16, 4), dim=1024, embed_dim=256,
@@ -891,6 +1282,13 @@ def main() -> int:
     weights2 = tgen.prepare_weights(params2, exp2.model, dev)
     torch.cuda.synchronize()
     print(f"config 2 params and kernel weights: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params4 = samplernn.init_params(torch.Generator().manual_seed(9),
+                                    exp4.model, dev)
+    weights4 = tgen.prepare_weights(params4, exp4.model, dev)
+    torch.cuda.synchronize()
+    print(f"config 4 params and kernel weights: "
           f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(1)
     t0w = time.perf_counter()
@@ -968,7 +1366,40 @@ def main() -> int:
         if not torch.equal(got, want) or serr > 1e-5:
             return fail(f"generate_full f32 T={temp}: samples differ or "
                         f"state err {serr} > 1e-5")
-    print("K1/K2/K3 f32 small shapes: samples equal to the plain versions")
+    # config 4's modes, f32 small: K1 lane keys, and the conditioned
+    # whole path (K2's epilogue) with lane keys and per-lane positions
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    skeys = [lane_key(6, i, 0) for i in range(8)]
+    spos = torch.arange(8, device=dev) * 5
+    got = kdec.frame_decode(swin, scond, None, smw, 0.9, None, 0, 50,
+                            lane_keys=skeys, lane_pos=spos)
+    want = kdec.frame_decode_plain(swin, scond, None, smw, 0.9, None, 0, 50,
+                                   lane_keys=skeys, lane_pos=spos)
+    err1k = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        return fail("frame_decode f32 lane keys: samples differ")
+    small4 = dataclasses.replace(small, cond_dim=16, cond_rate=12)
+    sp4 = samplernn.init_params(torch.Generator().manual_seed(3), small4, dev)
+    sw4 = tgen.prepare_weights(sp4, small4, dev)
+    scpos = torch.arange(8, device=dev) * 7
+    proj = tgen.project_cond(
+        sw4, small4, torch.randn(8, 6, 16, device=dev, generator=gen),
+        scpos, 4 * small4.lookback)
+    for temp in (0.0, 0.9):
+        kw = dict(n_top=4, weights_dtype="float32", pos0=spos,
+                  lane_keys=skeys, cond_rate=proj[2], ext_proj=proj[0],
+                  cond_phase=proj[1])
+        got, gs = megagen.generate_full(sw, sst, temp, sp4["tiers"],
+                                        sp4["mlp"], **kw)
+        want, ws = megagen.generate_full_plain(sw, sst, temp, sp4["tiers"],
+                                               sp4["mlp"], **kw)
+        serr = max((x - y).abs().max().item() for x, y in zip(gs, ws))
+        if not torch.equal(got, want) or serr > 1e-5:
+            return fail(f"conditioned generate_full f32 T={temp}: samples "
+                        f"differ or state err {serr} > 1e-5")
+    print("K1/K2/K3 f32 small shapes: samples equal to the plain versions "
+          "(K1 with lane keys, conditioned generate_full with K2's "
+          "epilogue, states within 1e-5)")
 
     mw = weights["mlp"]
     cond = kdec.gemm_bias(h, t0t["w_up"])
@@ -1012,6 +1443,9 @@ def main() -> int:
         k5 = check_sequence(torch, dev, rt, "lstm", exp2.train.batch_size,
                             c2_tiers, exp2.model.dim)
         k6 = check_lstm_gates(torch, dev, kdec, BATCH, exp2.model.dim)
+        # phase 7's calls: 4 requests and one split in 4, 5 requests' worth
+        k2c, k2p, k1c = c4_kernel_checks(torch, dev, kdec, tgen, exp4.model,
+                                         weights4, BATCH, 5)
     except SmokeFailure as err:
         return fail(str(err))
     print(f"phase 2 (kernel checks and timing): "
@@ -1102,7 +1536,20 @@ def main() -> int:
         return fail(str(err))
     print(f"phase 6 (config 2 training): {time.perf_counter() - t0:.1f} s")
 
-    # ---- 7. the result lines ----
+    # ---- 7-8. config 4: conditioned generation and stream serving ----
+    t0 = time.perf_counter()
+    try:
+        c4_launches = c4_generation(torch, dev, exp4, params4, weights4, card)
+        print(f"phase 7 (config 4 generation): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pool_launches = c4_serving(torch, dev, exp4, params4, card)
+    except SmokeFailure as err:
+        return fail(str(err))
+    print(f"phase 8 (config 4 serving): {time.perf_counter() - t0:.1f} s")
+    c4_all = add_counts(c4_launches, pool_launches)
+
+    # ---- 9. the result lines ----
     # K2 over both decode paths, each case weighted by its launches there
     k2_runs = {"flagship": launches["gemm_bias"],
                "c2_3tier_lstm": c2_launches["gemm_bias"]}
@@ -1143,6 +1590,32 @@ def main() -> int:
          "launches": c2_launches["lstm_gates"], "max_abs_err": k6[0],
          "ms": k6[1], "plain_ms": k6[2], "bound_ms": k6[4],
          "bound_by": k6[5], "library_ms": k6[3]},
+        # config 4's modes of the megakernel (megagen.py:196-220 tier_in,
+        # :139-166 and :397-415 host noise), counted over phases 7 and 8
+        {"name": "gemm_bias_cond", "route": "cuda",
+         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
+         "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
+         "launches": c4_all["gemm_bias_cond"], "max_abs_err": k2c["err"],
+         "ms": k2c["ms"], "plain_ms": k2c["plain"],
+         "bound_ms": k2c["bound"], "bound_by": max(k2c["by"],
+                                                   key=k2c["by"].get),
+         "library_ms": k2c["lib"],
+         # the other K2 launches of phases 7-8: per tier step 3 more
+         # than the conditioned input, and two MLP folds
+         "projection": {"launches": c4_all["gemm_bias"]
+                        - 4 * c4_all["gemm_bias_cond"]
+                        - 2 * exp4.model.frame_sizes[0],
+                        "max_abs_err": k2p["err"], "ms": k2p["ms"],
+                        "plain_ms": k2p["plain"], "bound_ms": k2p["bound"],
+                        "library_ms": k2p["lib"]}},
+        {"name": "frame_decode_lane_keys", "route": "cuda",
+         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
+         "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
+         "launches": c4_all["frame_decode_lane_keys"], "max_abs_err": err1k,
+         "max_abs_err_at": "float32 B=8 f1=4 H=64",
+         "rescore_bf16": k1c["agree"], "ms": k1c["ms"],
+         "plain_ms": k1c["plain"], "bound_ms": k1c["bound"],
+         "bound_by": k1c["by"], "library_ms": None},
     ] + [
         {"name": f"{cell}_sequence_{d}", "route": "cuda",
          "source": f"samplernn_pase_tpu_torch/ops/kernels/csrc/"

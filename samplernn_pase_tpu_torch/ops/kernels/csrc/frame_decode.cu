@@ -23,7 +23,13 @@
 // bits go through the megakernel's transform (23-bit mask, * 2^-23,
 // + 1e-7, -log(-log u)), with u clamped to 1 - 2^-24 so that the largest
 // word gives finite noise, not +inf.  Keyed by absolute position, the
-// stream does not depend on how a generation is chunked.
+// stream does not depend on how a generation is chunked.  3 = per-lane
+// keys, the counterpart of the megakernel's host-noise mode under the
+// reference's lane_keys (megagen.py:139-166, :397-415): lane b draws with
+// key lane_keys[b] and counter (level / 4, position low, position high,
+// 0), so its noise depends on its key and positions only, not on its
+// index in the batch.  Step i of lane b is at position
+// pos0 + i (+ lane_pos[b] when given) in modes 2 and 3.
 //
 // Bound on the H100: per step the batch needs the rows of W' it gathers,
 // W_h and W_out (2.6 MB in bf16 at dim 1024) and 0.34 GFLOP, ~0.4 us at
@@ -73,14 +79,14 @@ __device__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-__device__ float philox_gumbel(uint64_t seed, int lane, int64_t pos,
+// Gumbel noise of `level` at `pos`: counter word 3 is the lane index in
+// mode 2 and 0 in mode 3 (the lane's own key).
+__device__ float philox_gumbel(uint2 key, uint32_t word3, int64_t pos,
                                int level) {
   const uint4 ctr = make_uint4(static_cast<uint32_t>(level >> 2),
                                static_cast<uint32_t>(pos),
                                static_cast<uint32_t>(static_cast<uint64_t>(pos) >> 32),
-                               static_cast<uint32_t>(lane));
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed),
-                               static_cast<uint32_t>(seed >> 32));
+                               word3);
   const uint4 o = philox4x32_10(ctr, key);
   const int w = level & 3;
   const uint32_t bits = w == 0 ? o.x : w == 1 ? o.y : w == 2 ? o.z : o.w;
@@ -228,7 +234,9 @@ frame_decode_kernel(
     const float* __restrict__ b_h, const WT* __restrict__ w_out,
     const float* __restrict__ b_out, const float* __restrict__ noise,
     int noise_mode, float temperature, uint64_t seed, int64_t pos0,
-    int32_t* __restrict__ out, int64_t ldo, int b, int f1, int hdim, int q) {
+    const uint32_t* __restrict__ lane_keys,
+    const int64_t* __restrict__ lane_pos, int32_t* __restrict__ out,
+    int64_t ldo, int b, int f1, int hdim, int q) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int V = Vec<WT>::N;
@@ -292,10 +300,19 @@ frame_decode_kernel(
       for (int e = tid; e < LT * qc; e += THREADS) {
         const int l = e / qc, n = cq + e % qc;
         const int lane = min(lane0 + l, b - 1);
-        const float g =
-            noise_mode == 1
-                ? noise[(static_cast<int64_t>(i) * b + lane) * q + n]
-                : philox_gumbel(seed, lane, pos0 + i, n);
+        float g;
+        if (noise_mode == 1) {
+          g = noise[(static_cast<int64_t>(i) * b + lane) * q + n];
+        } else {
+          const int64_t p = pos0 + i + (lane_pos ? lane_pos[lane] : 0);
+          g = noise_mode == 3
+                  ? philox_gumbel(make_uint2(lane_keys[2 * lane],
+                                             lane_keys[2 * lane + 1]),
+                                  0u, p, n)
+                  : philox_gumbel(make_uint2(static_cast<uint32_t>(seed),
+                                             static_cast<uint32_t>(seed >> 32)),
+                                  static_cast<uint32_t>(lane), p, n);
+        }
         slice[e] = slice[e] + temperature * g;
       }
       __syncthreads();
@@ -358,8 +375,8 @@ int launch(const int32_t* window, int64_t ldw, const float* cond,
            const float* b_in, const void* w_h, const float* b_h,
            const void* w_out, const float* b_out, const float* noise,
            int noise_mode, float temperature, uint64_t seed, int64_t pos0,
-           int32_t* out, int64_t ldo, int b, int f1, int hdim, int q,
-           cudaStream_t stream) {
+           const uint32_t* lane_keys, const int64_t* lane_pos, int32_t* out,
+           int64_t ldo, int b, int f1, int hdim, int q, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(hdim, q, f1, Vec<WT>::N);
   cudaError_t err = cudaFuncSetAttribute(
       frame_decode_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -369,7 +386,8 @@ int launch(const int32_t* window, int64_t ldw, const float* cond,
   frame_decode_kernel<WT><<<blocks, THREADS, smem, stream>>>(
       window, ldw, cond, ldc, bup, static_cast<const WT*>(w_fused), b_in,
       static_cast<const WT*>(w_h), b_h, static_cast<const WT*>(w_out), b_out,
-      noise, noise_mode, temperature, seed, pos0, out, ldo, b, f1, hdim, q);
+      noise, noise_mode, temperature, seed, pos0, lane_keys, lane_pos, out,
+      ldo, b, f1, hdim, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,15 +398,16 @@ extern "C" int srnn_frame_decode(
     const float* bup, const void* w_fused, const float* b_in,
     const void* w_h, const float* b_h, const void* w_out, const float* b_out,
     const float* noise, int noise_mode, float temperature, uint64_t seed,
-    int64_t pos0, int32_t* out, int64_t ldo, int b, int f1, int hdim, int q,
-    int w_bf16, void* stream) {
+    int64_t pos0, const uint32_t* lane_keys, const int64_t* lane_pos,
+    int32_t* out, int64_t ldo, int b, int f1, int hdim, int q, int w_bf16,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_bf16)
     return launch<__nv_bfloat16>(window, ldw, cond, ldc, bup, w_fused, b_in,
                                  w_h, b_h, w_out, b_out, noise, noise_mode,
-                                 temperature, seed, pos0, out, ldo, b, f1,
-                                 hdim, q, s);
+                                 temperature, seed, pos0, lane_keys, lane_pos,
+                                 out, ldo, b, f1, hdim, q, s);
   return launch<float>(window, ldw, cond, ldc, bup, w_fused, b_in, w_h, b_h,
                        w_out, b_out, noise, noise_mode, temperature, seed,
-                       pos0, out, ldo, b, f1, hdim, q, s);
+                       pos0, lane_keys, lane_pos, out, ldo, b, f1, hdim, q, s);
 }

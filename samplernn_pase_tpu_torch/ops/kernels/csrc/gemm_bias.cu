@@ -1,4 +1,5 @@
-// K2 gemm_bias: C[M,N] = round(A)[M,K] @ W[K,N] + bias[N] (+ add[M,N]).
+// K2 gemm_bias: C[M,N] = round(A)[M,K] @ W[K,N] + bias[N] (+ add[M,N])
+// (+ the conditioning row of each output row).
 //
 // Replaces the products that samplernn_pase_tpu/ops/pallas/megagen.py
 // (_kernel: tier_in, _cell, the f1-row upsample hoist, up_row) and
@@ -8,7 +9,19 @@
 // A is float32 activations, or int32 levels dequantized on load as
 // l/(q/2) - 1; each A element is rounded to the weight type before the
 // product (x.astype(w.dtype) in the reference) and products accumulate in
-// float32.  The epilogue order is (acc + bias) + add, the reference's.
+// float32.  The epilogue order is ((acc + bias) + add) + ext row, the
+// reference's (tier_in: x + bf, + upper, + ext; float32 samples depend on
+// it).
+//
+// Conditioning (the megakernel's cond_rate/ext_proj/cond_phase mode,
+// megagen.py:196-220 tier_in): ext holds R projected conditioning rows per
+// output row b (row r of b at ext + r*ld_row + b*ld_lane).  At `pos`, the
+// tier frame's first-sample offset within the call, row b adds
+//   base = pos / rate, bump = phase[b] + pos % rate >= rate,
+//   r = bump ? min(base + 1, R - 1) : base
+// (each lane's rows start at its own origin and its sub-row phase picks
+// one of two rows).  The row index is worked out here, not on the host,
+// so a tier step stays one launch; reading it adds B*N*4 bytes.
 //
 // Bound on the H100: at decode batch 128 the products are small
 // ([128,1024]@[1024,3072], [128,1024]@[1024,16384]); the weights (up to
@@ -30,13 +43,31 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
+// The conditioning epilogue's inputs; ext == nullptr turns it off.
+struct ExtCond {
+  const float* ext;
+  int64_t ld_row, ld_lane;
+  const int32_t* phase;
+  int rows, pos, rate;
+};
+
+__device__ __forceinline__ float add_ext(const ExtCond& e, float v, int gr,
+                                         int gc) {
+  if (!e.ext) return v;
+  const int base = e.pos / e.rate;
+  const bool bump = e.phase[gr] + e.pos % e.rate >= e.rate;
+  const int r = bump ? min(base + 1, e.rows - 1) : base;
+  return v + e.ext[static_cast<int64_t>(r) * e.ld_row +
+                   static_cast<int64_t>(gr) * e.ld_lane + gc];
+}
+
 template <typename WT, bool LEVELS>
 __global__ void __launch_bounds__(THREADS)
 gemm_bias_kernel(const void* __restrict__ a_ptr, int64_t lda,
                  const WT* __restrict__ w, const float* __restrict__ bias,
                  const float* __restrict__ add, int64_t ldadd,
-                 float* __restrict__ c, int64_t ldc, int m, int n, int k,
-                 float q_half) {
+                 ExtCond ext, float* __restrict__ c, int64_t ldc, int m,
+                 int n, int k, float q_half) {
   __shared__ float as[BK][BM];
   __shared__ float ws[BK][BN];
   const int tid = threadIdx.x;
@@ -98,7 +129,7 @@ gemm_bias_kernel(const void* __restrict__ a_ptr, int64_t lda,
       float v = acc[i][j];
       if (bias) v = v + bias[gc];
       if (add) v = v + add[gr * ldadd + gc];
-      c[gr * ldc + gc] = v;
+      c[gr * ldc + gc] = add_ext(ext, v, gr, gc);
     }
   }
 }
@@ -150,8 +181,8 @@ gemm_bias_wmma_kernel(const void* __restrict__ a_ptr, int64_t lda,
                       const __nv_bfloat16* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ add, int64_t ldadd,
-                      float* __restrict__ c, int64_t ldc, int m, int n,
-                      int k, float q_half) {
+                      ExtCond ext, float* __restrict__ c, int64_t ldc,
+                      int m, int n, int k, float q_half) {
   namespace wmma = nvcuda::wmma;
   __shared__ __align__(32) __nv_bfloat16 as[TBM * LDA];
   __shared__ __align__(32) __nv_bfloat16 ws[TBK * LDW];
@@ -254,23 +285,23 @@ gemm_bias_wmma_kernel(const void* __restrict__ a_ptr, int64_t lda,
     float v = cs[(e / TBN) * LDC + e % TBN];
     if (bias) v = v + bias[gc];
     if (add) v = v + add[gr * ldadd + gc];
-    c[gr * ldc + gc] = v;
+    c[gr * ldc + gc] = add_ext(ext, v, gr, gc);
   }
 }
 
 template <typename WT>
 void launch(const void* a, int a_levels, int64_t lda, const void* w,
-            const float* bias, const float* add, int64_t ldadd, float* c,
-            int64_t ldc, int m, int n, int k, float q_half,
-            cudaStream_t stream) {
+            const float* bias, const float* add, int64_t ldadd,
+            const ExtCond& ext, float* c, int64_t ldc, int m, int n, int k,
+            float q_half, cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   const WT* wt = static_cast<const WT*>(w);
   if (a_levels)
     gemm_bias_kernel<WT, true><<<grid, THREADS, 0, stream>>>(
-        a, lda, wt, bias, add, ldadd, c, ldc, m, n, k, q_half);
+        a, lda, wt, bias, add, ldadd, ext, c, ldc, m, n, k, q_half);
   else
     gemm_bias_kernel<WT, false><<<grid, THREADS, 0, stream>>>(
-        a, lda, wt, bias, add, ldadd, c, ldc, m, n, k, q_half);
+        a, lda, wt, bias, add, ldadd, ext, c, ldc, m, n, k, q_half);
 }
 
 }  // namespace
@@ -279,19 +310,24 @@ extern "C" int srnn_gemm_bias(const void* a, int a_levels, int64_t lda,
                               const void* w, int w_bf16, const float* bias,
                               const float* add, int64_t ldadd, float* c,
                               int64_t ldc, int m, int n, int k, float q_half,
-                              void* stream) {
+                              const float* ext, int64_t ext_ld_row,
+                              int64_t ext_ld_lane, int ext_rows,
+                              const int32_t* cond_phase, int pos,
+                              int cond_rate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ExtCond e{ext, ext_ld_row, ext_ld_lane, cond_phase, ext_rows, pos,
+                  cond_rate};
   if (w_bf16) {
     const dim3 grid((n + TBN - 1) / TBN, (m + TBM - 1) / TBM);
     const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
     if (a_levels)
       gemm_bias_wmma_kernel<true><<<grid, TTHREADS, 0, s>>>(
-          a, lda, wb, bias, add, ldadd, c, ldc, m, n, k, q_half);
+          a, lda, wb, bias, add, ldadd, e, c, ldc, m, n, k, q_half);
     else
       gemm_bias_wmma_kernel<false><<<grid, TTHREADS, 0, s>>>(
-          a, lda, wb, bias, add, ldadd, c, ldc, m, n, k, q_half);
+          a, lda, wb, bias, add, ldadd, e, c, ldc, m, n, k, q_half);
   } else {
-    launch<float>(a, a_levels, lda, w, bias, add, ldadd, c, ldc, m, n, k,
+    launch<float>(a, a_levels, lda, w, bias, add, ldadd, e, c, ldc, m, n, k,
                   q_half, s);
   }
   return static_cast<int>(cudaGetLastError());

@@ -4,9 +4,11 @@ per-frame counterparts of ``samplernn_pase_tpu/ops/pallas/decode.py``.
 Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
 
 * K1 ``frame_decode`` (``csrc/frame_decode.cu``): one bottom frame, f1
-  autoregressive sample-MLP steps for every lane, Gumbel-max sampling.
-* K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)``
-  for every product outside the MLP, with int32 levels dequantized on load.
+  autoregressive sample-MLP steps for every lane, Gumbel-max sampling
+  with supplied, shared-seed or per-lane-key noise.
+* K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)
+  (+ the lane's conditioning row)`` for every product outside the MLP,
+  with int32 levels dequantized on load.
 * K3 ``gru_gates`` (``csrc/gru_gates.cu``): the GRU gate math.
 * K6 ``lstm_gates`` (``csrc/lstm_gates.cu``): the LSTM gate math, on the
   gate sum that K2 forms in one buffer (its ``add`` input).
@@ -26,6 +28,9 @@ counterparts of the Pallas kernels of the same names: the first is K1;
 the second is K2 (tier input + ``upper``), K2 twice (the gates), K3 (GRU)
 or K6 (LSTM), K2 (the upsample) and K1.  A tier's state is a tuple of
 float32 [B, H] tensors: ``(h,)`` for a GRU, ``(h, c)`` for an LSTM.
+Conditioned decode passes each tier a ``CondRows`` (its projected
+conditioning rows, each lane's phase and the cond rate), which K2's
+epilogue adds to the tier input.
 """
 
 from __future__ import annotations
@@ -37,27 +42,32 @@ import torch
 
 from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
 from samplernn_pase_tpu_torch.ops.kernels import _build
-from samplernn_pase_tpu_torch.ops.kernels.noise import gumbel_block
+from samplernn_pase_tpu_torch.ops.kernels.noise import (
+    as_lane_keys, gumbel_block, lane_gumbel_block)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); the
+# "<kernel>_<mode>" entries count the launches of a kernel that took that
+# mode (K2's conditioning epilogue, K1's per-lane keys), within its own
+# count
 LAUNCHES = {"frame_decode": 0, "gemm_bias": 0, "gru_gates": 0,
-            "lstm_gates": 0}
+            "lstm_gates": 0, "gemm_bias_cond": 0,
+            "frame_decode_lane_keys": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
 _SIGNATURES = {
     "gemm_bias": ("srnn_gemm_bias",
                   [_P, _I, _I64, _P, _I, _P, _P, _I64, _P, _I64, _I, _I, _I,
-                   _F, _P]),
+                   _F, _P, _I64, _I64, _I, _P, _I, _I, _P]),
     "gru_gates": ("srnn_gru_gates",
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
     "lstm_gates": ("srnn_lstm_gates",
                    [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
     "frame_decode": ("srnn_frame_decode",
                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _F, ctypes.c_uint64, _I64, _P, _I64, _I, _I, _I, _I, _I,
-                      _P]),
+                      _F, ctypes.c_uint64, _I64, _P, _P, _P, _I64, _I, _I, _I,
+                      _I, _I, _P]),
 }
 
 
@@ -82,11 +92,13 @@ def _fn(name):
     return fn
 
 
-def _launch(name, *args):
+def _launch(name, *args, mode=None):
     err = _fn(name)(*args)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
+    if mode:
+        LAUNCHES[f"{name}_{mode}"] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -100,7 +112,7 @@ def _ptr(t):
 def _on_cpu(*tensors) -> bool:
     """True when the tensors are on the CPU (plain version); False on one
     CUDA device (kernel).  Anything else raises."""
-    devices = {t.device for t in tensors if t is not None}
+    devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
     dev = devices.pop()
@@ -127,7 +139,20 @@ _W_DTYPES = (torch.float32, torch.bfloat16)
 
 # ----------------------------------------------------------------- K2 --
 
-def gemm_bias_plain(a, w, bias=None, add=None, levels_q=0):
+def _ext_base(ext, pos: int, cond_rate: int) -> int:
+    """The row K2's conditioning epilogue starts from at ``pos``; raises
+    when ``ext`` does not hold it."""
+    if cond_rate <= 0 or pos < 0:
+        raise ValueError(f"cond_rate={cond_rate}, pos={pos}")
+    base = pos // cond_rate
+    if base >= ext.shape[0]:
+        raise ValueError(f"conditioning row {base} (pos {pos}, cond_rate "
+                         f"{cond_rate}) past the {ext.shape[0]} rows given")
+    return base
+
+
+def gemm_bias_plain(a, w, bias=None, add=None, levels_q=0, ext=None,
+                    cphase=None, pos=0, cond_rate=0):
     if levels_q:
         a = a.to(torch.float32) / (levels_q / 2.0) - 1.0
     c = torch.matmul(a.to(w.dtype).to(torch.float32), w.to(torch.float32))
@@ -135,18 +160,29 @@ def gemm_bias_plain(a, w, bias=None, add=None, levels_q=0):
         c = c + bias
     if add is not None:
         c = c + add
+    if ext is not None:
+        base = _ext_base(ext, pos, cond_rate)
+        bump = cphase.to(torch.int64) + pos % cond_rate >= cond_rate
+        hi = min(base + 1, ext.shape[0] - 1)
+        c = c + torch.where(bump[:, None], ext[hi], ext[base])
     return c
 
 
-def gemm_bias(a, w, bias=None, add=None, levels_q=0):
-    """K2: ``round(A) @ W + bias (+ add)`` -> float32 ``[M, N]``.
+def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
+              pos=0, cond_rate=0):
+    """K2: ``round(A) @ W + bias (+ add) (+ ext row)`` -> float32 ``[M, N]``.
 
     a [M, K] float32 (or int32 levels when ``levels_q`` is the level
     count: dequantized as ``l/(q/2) - 1``), rows may be strided; w [K, N]
     float32/bf16 contiguous; bias [N] float32 or None; add [M, N] float32
-    (rows may be strided) or None."""
-    if _on_cpu(a, w, bias, add):
-        return gemm_bias_plain(a, w, bias, add, levels_q)
+    (rows may be strided) or None.  Conditioning: ext [R, M, N] float32
+    (last axis contiguous) with cphase [M] int32, ``pos`` and
+    ``cond_rate``: row m adds ``ext[r, m]``, r = ``pos // cond_rate``, or
+    ``min(that + 1, R - 1)`` when ``cphase[m] + pos % cond_rate >=
+    cond_rate`` (``megagen.py:211-219``)."""
+    if _on_cpu(a, w, bias, add, ext, cphase):
+        return gemm_bias_plain(a, w, bias, add, levels_q, ext, cphase, pos,
+                               cond_rate)
     m, k = a.shape
     n = w.shape[1]
     _check(a, "a", (torch.int32,) if levels_q else (torch.float32,),
@@ -156,11 +192,23 @@ def gemm_bias(a, w, bias=None, add=None, levels_q=0):
         _check(bias, "bias", (torch.float32,), (n,))
     if add is not None:
         _check(add, "add", (torch.float32,), (m, n), rows_strided=True)
+    ext_args = (None, 0, 0, 0, None, 0, 0)
+    if ext is not None:
+        if (ext.dtype != torch.float32 or ext.dim() != 3
+                or tuple(ext.shape[1:]) != (m, n) or ext.stride(2) != 1):
+            raise ValueError(f"ext: {ext.dtype} {tuple(ext.shape)} strides "
+                             f"{ext.stride()}, expected float32 [R, {m}, "
+                             f"{n}] with contiguous rows")
+        _check(cphase, "cphase", (torch.int32,), (m,))
+        _ext_base(ext, pos, cond_rate)
+        ext_args = (ext.data_ptr(), ext.stride(0), ext.stride(1),
+                    ext.shape[0], cphase.data_ptr(), int(pos), int(cond_rate))
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     _launch("gemm_bias", a.data_ptr(), int(bool(levels_q)), a.stride(0),
             w.data_ptr(), int(w.dtype == torch.bfloat16), _ptr(bias),
             _ptr(add), 0 if add is None else add.stride(0), c.data_ptr(), n,
-            m, n, k, (levels_q or 2) / 2.0, _stream(a))
+            m, n, k, (levels_q or 2) / 2.0, *ext_args, _stream(a),
+            mode="cond" if ext is not None else None)
     return c
 
 
@@ -223,8 +271,24 @@ def lstm_gates(g, c):
 
 # ----------------------------------------------------------------- K1 --
 
+def frame_noise(temperature, noise, seed, pos0, lane_keys, lane_pos, b,
+                f1, q, device):
+    """The [f1, B, q] noise block K1 reads, drawn in PyTorch: the supplied
+    one (mode 1), per-lane keys (mode 3) or the shared seed (mode 2) at
+    positions ``pos0 (+ lane_pos) + i``; None when greedy."""
+    if not temperature:
+        return None
+    if noise is not None:
+        return noise
+    pos = pos0 if lane_pos is None else lane_pos.to(torch.int64) + pos0
+    if lane_keys is not None:
+        return lane_gumbel_block(lane_keys, pos, f1, q, device)
+    return gumbel_block(seed, b, pos, f1, q, device)
+
+
 def frame_decode_plain(window, cond, bup, mw, temperature, noise=None,
-                       seed=0, pos0=0, out=None, *, forced=None):
+                       seed=0, pos0=0, out=None, lane_keys=None,
+                       lane_pos=None, *, forced=None):
     """Plain version of K1 (see ``frame_decode``).  With ``forced`` [B, f1]
     the window rolls with those samples instead of its own, so the result
     is the argmax each step would take on that history (rescoring)."""
@@ -234,8 +298,8 @@ def frame_decode_plain(window, cond, bup, mw, temperature, noise=None,
     wf = mw["w_fused"].view(f1, q, hdim)
     wt = wf.dtype
     cond = cond.reshape(b, f1, hdim)
-    if temperature and noise is None:
-        noise = gumbel_block(seed, b, pos0, f1, q, window.device)
+    noise = frame_noise(temperature, noise, seed, pos0, lane_keys, lane_pos,
+                        b, f1, q, window.device)
     slots = torch.arange(f1, device=window.device)[None, :]
     win = window.to(torch.int64)
     samples = []
@@ -265,20 +329,32 @@ def frame_decode_plain(window, cond, bup, mw, temperature, noise=None,
     return out
 
 
+def kernel_lane_keys(lane_keys, device=None) -> torch.Tensor:
+    """Lane keys in the form K1 reads them: int32 [B, 2] holding the bits
+    of the 32-bit words (``noise.as_lane_keys`` reads them back).  A loop
+    converts once per call, not per launch."""
+    keys = as_lane_keys(lane_keys, device)
+    return torch.where(keys >= 1 << 31, keys - (1 << 32),
+                       keys).to(torch.int32).contiguous()
+
+
 def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
-                 pos0=0, out=None):
+                 pos0=0, out=None, lane_keys=None, lane_pos=None):
     """K1: decode one bottom frame for every lane -> int32 [B, f1].
 
     window [B, f1] int32 levels (rows may be strided); cond [B, f1*H]
     float32 conditioning rows (rows may be strided); bup [f1, H] float32
     added to row i at use, or None; mw: ``prepare_mlp`` weights;
     temperature 0 = greedy (noise is then never read); noise [f1, B, q]
-    float32 Gumbel block, or None to draw Philox noise from ``seed`` at
-    absolute positions ``pos0 .. pos0+f1-1``.  ``out``: an int32 [B, f1]
-    view (rows may be strided) to write into, else allocated."""
-    if _on_cpu(window, cond, mw["w_fused"]):
+    float32 Gumbel block, or None to draw Philox noise in the kernel:
+    keyed by ``seed`` and the lane index, or with ``lane_keys`` [B, 2]
+    (see ``noise.as_lane_keys``) by each lane's own key; step i of lane b
+    is at position ``pos0 + i``, plus ``lane_pos[b]`` when a [B] tensor
+    of per-lane offsets is given.  ``out``: an int32 [B, f1] view (rows
+    may be strided) to write into, else allocated."""
+    if _on_cpu(window, cond, mw["w_fused"], lane_keys, lane_pos):
         return frame_decode_plain(window, cond, bup, mw, temperature, noise,
-                                  seed, pos0, out)
+                                  seed, pos0, out, lane_keys, lane_pos)
     b, f1 = window.shape
     hdim = mw["b_in"].shape[0]
     q = mw["b_out"].shape[0]
@@ -298,9 +374,19 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
         raise ValueError(f"frame_decode: dim {hdim} and q_levels {q} must "
                          "be multiples of 64 (8 blocks per cluster, 16-byte "
                          "weight loads)")
-    mode = 0 if not temperature else (1 if noise is not None else 2)
+    mode = (0 if not temperature else 1 if noise is not None
+            else 3 if lane_keys is not None else 2)
     if mode == 1:
         _check(noise, "noise", (torch.float32,), (f1, b, q))
+    keys = None
+    if mode == 3:
+        keys = lane_keys
+        if not (isinstance(keys, torch.Tensor) and keys.dtype == torch.int32
+                and keys.device == window.device):
+            keys = kernel_lane_keys(keys, window.device)
+        _check(keys, "lane_keys", (torch.int32,), (b, 2))
+    if lane_pos is not None and mode >= 2:
+        _check(lane_pos, "lane_pos", (torch.int64,), (b,))
     if out is None:
         out = torch.empty((b, f1), dtype=torch.int32, device=window.device)
     _check(out, "out", (torch.int32,), (b, f1), rows_strided=True)
@@ -311,12 +397,24 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
             mw["w_out"].data_ptr(), mw["b_out"].data_ptr(),
             _ptr(noise) if mode == 1 else None, mode,
             float(temperature or 0.0), int(seed) & 0xFFFFFFFFFFFFFFFF,
-            int(pos0), out.data_ptr(), out.stride(0), b, f1, hdim, q,
-            int(wt == torch.bfloat16), _stream(window))
+            int(pos0), _ptr(keys), _ptr(lane_pos) if mode >= 2 else None,
+            out.data_ptr(), out.stride(0), b, f1, hdim, q,
+            int(wt == torch.bfloat16), _stream(window),
+            mode="lane_keys" if mode == 3 else None)
     return out
 
 
 # --------------------------------------------------- composite ops --
+
+class CondRows(NamedTuple):
+    """A tier's conditioning in a decode call, the megakernel's
+    ``ext_proj[k]``/``cond_phase``/``cond_rate``: ext [R, B, H] float32
+    projected rows, each lane's from its own origin; phase [B] int32, each
+    lane's first position modulo ``rate``."""
+    ext: torch.Tensor
+    phase: torch.Tensor
+    rate: int
+
 
 class Ops(NamedTuple):
     """The ops a decode path calls: the kernel wrappers, or their plain
@@ -335,7 +433,8 @@ PLAIN = Ops(gemm_bias_plain, gru_gates_plain, lstm_gates_plain,
 def prepare_tier(tier, dtype) -> dict:
     """A GRU or LSTM tier's weights in kernel form: weight-norm resolved,
     matrices in ``dtype`` and contiguous (``w_ih``/``w_hh`` [H, 3H] or
-    [H, 4H]), biases float32 (``b_up`` also flat)."""
+    [H, 4H]; ``w_cond`` [cond_dim, H] where the tier has one), biases
+    float32 (``b_up`` also flat)."""
     dt = torch_dtype(dtype)
     if len(tier["rnn"]) != 1:
         raise NotImplementedError(
@@ -353,7 +452,8 @@ def prepare_tier(tier, dtype) -> dict:
         "w_up": wnorm.resolve(tier["w_up"]).to(dt).contiguous(),
         "b_up": tier["b_up"].to(f32).contiguous(),
         "b_up_flat": tier["b_up"].to(f32).reshape(-1).contiguous(),
-    }
+    } | ({"w_cond": tier["w_cond"].to(dt).contiguous()}
+         if "w_cond" in tier else {})
 
 
 def prepare_mlp(mlp, dtype, f1: int, ops: Ops = KERNELS) -> dict:
@@ -409,15 +509,21 @@ def model_state(state):
     return s if len(state) == 1 else s[None]
 
 
-def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS):
+def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS,
+              cond: CondRows | None = None, pos: int = 0):
     """One tier step in kernels: K2 (levels -> dequantized frame @ w_in +
-    b_in + upper), K2 (the input gates ``xg``), then for a GRU K2 (``hg``)
-    and K3, for an LSTM K2 with ``xg`` as its ``add`` (``(h @ w_hh +
-    b_hh) + xg``, the reference's ``xg + hg`` in one buffer) and K6.
-    frame [B, span] int32 levels; upper [B, H] float32 or None; state
-    ``(h,)`` (GRU) or ``(h, c)`` (LSTM), from ``decode_state`` -> the new
+    b_in + upper, + the lane's conditioning row), K2 (the input gates
+    ``xg``), then for a GRU K2 (``hg``) and K3, for an LSTM K2 with ``xg``
+    as its ``add`` (``(h @ w_hh + b_hh) + xg``, the reference's ``xg +
+    hg`` in one buffer) and K6.  frame [B, span] int32 levels; upper
+    [B, H] float32 or None; state ``(h,)`` (GRU) or ``(h, c)`` (LSTM), from
+    ``decode_state``; cond: this tier's ``CondRows`` or None, read at
+    ``pos``, the frame's first-sample offset within the call -> the new
     state, same form."""
-    x = ops.gemm(frame, tw["w_in"], tw["b_in"], upper, levels_q=q_levels)
+    kw = {} if cond is None else dict(ext=cond.ext, cphase=cond.phase,
+                                      pos=pos, cond_rate=cond.rate)
+    x = ops.gemm(frame, tw["w_in"], tw["b_in"], upper, levels_q=q_levels,
+                 **kw)
     xg = ops.gemm(x, tw["w_ih"], tw["b_ih"])
     h = state[0]
     if len(state) == 1:
@@ -426,14 +532,18 @@ def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS):
 
 
 def tier_frame(tw, mw, window, upper, state, temperature, q_levels,
-               ops: Ops = KERNELS, noise=None, seed=0, pos0=0, out=None):
-    """The bottom tier's whole frame on prepared weights: the tier cell,
-    the upsample ``h' @ w_up`` (K2, ``b_up`` added per row in K1) and the
-    f1 MLP steps (K1).  Returns (samples [B, f1], the new state)."""
-    state = tier_cell(tw, window, upper, state, q_levels, ops)
-    cond = ops.gemm(state[0], tw["w_up"])
-    samples = ops.frame(window, cond, tw["b_up"], mw, temperature, noise,
-                        seed, pos0, out)
+               ops: Ops = KERNELS, noise=None, seed=0, pos0=0, out=None,
+               cond: CondRows | None = None, pos: int = 0, lane_keys=None,
+               lane_pos=None):
+    """The bottom tier's whole frame on prepared weights: the tier cell
+    (with ``cond`` read at ``pos``), the upsample ``h' @ w_up`` (K2,
+    ``b_up`` added per row in K1) and the f1 MLP steps (K1, noise as
+    ``frame_decode`` takes it).  Returns (samples [B, f1], the new
+    state)."""
+    state = tier_cell(tw, window, upper, state, q_levels, ops, cond, pos)
+    rows = ops.gemm(state[0], tw["w_up"])
+    samples = ops.frame(window, rows, tw["b_up"], mw, temperature, noise,
+                        seed, pos0, out, lane_keys, lane_pos)
     return samples, state
 
 
@@ -459,14 +569,20 @@ def fused_frame_decode(window, cond, temperature, mlp_params, *,
 def fused_tier_frame_decode(window, upper_cond, h_prev, temperature,
                             tier_params, mlp_params, *, q_levels: int = 256,
                             rnn_type: str = "gru", weights_dtype="bfloat16",
-                            noise=None, seed: int = 0, pos0: int = 0):
+                            noise=None, seed: int = 0, pos0: int = 0,
+                            cond: CondRows | None = None, pos: int = 0,
+                            lane_keys=None, lane_pos=None):
     """Counterpart of ``ops/pallas/decode.py:fused_tier_frame_decode``
     (n_rnn=1): the bottom tier's GRU or LSTM step, its upsample and the f1
     MLP steps.
 
     window [B, f1] int32; upper_cond [B, H] float32; h_prev [1, B, H]
-    (GRU) or [2, B, H] (LSTM: h, c) float32.  Returns (samples [B, f1]
-    int32, h_new in h_prev's layout, float32)."""
+    (GRU) or [2, B, H] (LSTM: h, c) float32.  The reference adds the
+    conditioning projection to ``upper_cond`` outside its kernel; here
+    ``cond``/``pos`` give K2 the projected rows instead (``tier_cell``),
+    and ``lane_keys``/``lane_pos`` take the place of its per-lane noise
+    block (``frame_decode``).  Returns (samples [B, f1] int32, h_new in
+    h_prev's layout, float32)."""
     w_hh = tier_params["rnn"][0]["w_hh"]
     gates = tier_gates(w_hh)
     if gates != {"gru": 3, "lstm": 4}[rnn_type]:
@@ -481,5 +597,6 @@ def fused_tier_frame_decode(window, upper_cond, h_prev, temperature,
     mw = prepare_mlp(mlp_params, dt, f1)
     samples, state = tier_frame(
         tw, mw, window.to(torch.int32), upper_cond.to(torch.float32), state,
-        temperature, q_levels, KERNELS, noise, seed, pos0)
+        temperature, q_levels, KERNELS, noise, seed, pos0, None, cond, pos,
+        lane_keys, lane_pos)
     return samples, torch.stack(state)

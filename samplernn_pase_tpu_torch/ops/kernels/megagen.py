@@ -1,8 +1,9 @@
 """Whole generation on the decode kernels: the counterpart of
 ``samplernn_pase_tpu/ops/pallas/megagen.py:generate_full_pallas`` for GRU
-and LSTM tiers with n_rnn=1, 2 or 3 tiers, unconditioned, greedy or
-sampled (its resident and ``stream_top`` forms compute the same samples;
-here every weight is read from L2 or device memory at each use).
+and LSTM tiers with n_rnn=1, 2 or 3 tiers, greedy or sampled, with or
+without conditioning (its resident and ``stream_top`` forms compute the
+same samples; here every weight is read from L2 or device memory at each
+use).
 
 The TPU megakernel keeps every weight (~55 MB in bf16) resident in one
 core's 128 MiB of VMEM for one launch.  The flagship's bf16 weights are
@@ -11,15 +12,22 @@ core's 128 MiB of VMEM for one launch.  The flagship's bf16 weights are
 over; a single persistent kernel is later work.  Here the loop over top
 frames runs on the host and launches the kernels of ``decode.py``:
 
-* per tier-k step (k > 0): K2 (tier input + upper), K2 x2 (gates), K3
-  (GRU) or K6 (LSTM), K2 (upsample, bias added);
+* per tier-k step (k > 0): K2 (tier input + upper, + the lane's
+  conditioning row), K2 x2 (gates), K3 (GRU) or K6 (LSTM), K2 (upsample,
+  bias added);
 * per bottom frame: ``decode.tier_frame``, the counterpart of
   ``fused_tier_frame_decode``: the same cell, K2 (upsample rows, ``b_up``
   added per row by K1), then K1 for the f1 samples.
 
 A flagship top frame (2-tier GRU, frame_sizes (16, 4)) takes 29 launches;
 config 2's (3-tier LSTM, (16, 4, 4)) 121: 5 for tier 2, 4 x 5 for tier 1
-and 16 x 6 for the bottom frames.
+and 16 x 6 for the bottom frames.  Conditioning adds no launch: the
+megakernel's two-row select (``tier_in``, ``megagen.py:196-220``) is K2's
+epilogue on the tier input, fed the rows the caller projected once per
+call (``ext_proj``).  Its per-lane host noise (``gumbel`` under the
+reference's ``lane_keys``, ``megagen.py:139-166``) is K1's noise mode 3:
+each lane draws with its own key at its own positions (``lane_keys``,
+``pos0`` a [B] tensor).
 
 Lower tiers recurse as in the megakernel's ``decode``.  The levels go
 into one preallocated int32 buffer ``[B, lookback + n_top*lookback]``
@@ -36,8 +44,9 @@ from __future__ import annotations
 import torch
 
 from samplernn_pase_tpu_torch.ops.kernels.decode import (
-    KERNELS, PLAIN, Ops, decode_state, model_state, prepare_mlp,
-    prepare_tier, tier_cell, tier_frame, tier_gates)
+    KERNELS, PLAIN, CondRows, Ops, decode_state, kernel_lane_keys,
+    model_state, prepare_mlp, prepare_tier, tier_cell, tier_frame,
+    tier_gates)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 
 
@@ -49,14 +58,19 @@ def prepare(tiers, mlp, dtype, ops: Ops = KERNELS) -> dict:
 
 
 def run(weights, window, states, temperature, n_top, q_levels,
-        ops: Ops = KERNELS, seed: int = 0, pos0: int = 0, gumbel=None):
+        ops: Ops = KERNELS, seed: int = 0, pos0=0, gumbel=None,
+        cond: tuple | None = None, lane_keys=None):
     """Generate ``n_top`` top frames on prepared weights.
 
     window [B, lookback] int32; states: per-tier model-layout states,
     [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32.  Returns (levels
     [B, n_top*lookback] int32, final states, same layout).
-    ``pos0`` is the absolute position of the first sample (the Philox
-    counter); ``gumbel`` [n_bottom, f1, B, q] float32 replaces Philox."""
+    ``pos0`` is the noise position of the first sample, an int or a [B]
+    int64 tensor (one per lane); noise is Philox keyed by ``seed``, or by
+    each lane's ``lane_keys`` [B, 2]; ``gumbel`` [n_bottom, f1, B, q]
+    float32 replaces Philox.  ``cond``: (ext_proj, cond_phase, cond_rate)
+    with ext_proj a per-tier tuple of [R, B, H] float32 rows, cond_phase
+    [B] int32, or None."""
     tiers = weights["tiers"]
     mw = weights["mlp"]
     frame_sizes = [t["b_up"].shape[0] for t in tiers]
@@ -79,6 +93,17 @@ def run(weights, window, states, temperature, n_top, q_levels,
     if len(states) != len(tiers):
         raise ValueError(f"{len(states)} states for {len(tiers)} tiers")
     h = [decode_state(s, t["w_hh"]) for s, t in zip(states, tiers)]
+    tier_cond = [None] * len(tiers)
+    if cond is not None:
+        ext_proj, phase, rate = cond
+        if len(ext_proj) != len(tiers):
+            raise ValueError(f"{len(ext_proj)} ext_proj for {len(tiers)} "
+                             "tiers")
+        tier_cond = [CondRows(e, phase, rate) for e in ext_proj]
+    if lane_keys is not None:
+        lane_keys = kernel_lane_keys(lane_keys, window.device)
+    lane_pos = pos0 if isinstance(pos0, torch.Tensor) else None
+    pos_off = 0 if lane_pos is not None else int(pos0)
 
     def decode(k, upper, p):
         """Tier k's frame starting at generated sample p."""
@@ -88,9 +113,11 @@ def run(weights, window, states, temperature, n_top, q_levels,
             noise = None if gumbel is None else gumbel[p // f1]
             _, h[0] = tier_frame(tiers[0], mw, frame, upper, h[0],
                                  temperature, q_levels, ops, noise, seed,
-                                 pos0 + p, buf[:, start:start + f1])
+                                 pos_off + p, buf[:, start:start + f1],
+                                 tier_cond[0], p, lane_keys, lane_pos)
             return
-        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops)
+        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
+                         tier_cond[k], p)
         cond = ops.gemm(h[k][0], tiers[k]["w_up"], tiers[k]["b_up_flat"])
         hdim = h[k][0].shape[1]
         for j in range(frame_sizes[k]):
@@ -120,24 +147,36 @@ def _check_scope(tiers, rnn_type):
 
 def generate_full(window, states, temperature, tiers, mlp, *, n_top: int,
                   q_levels: int = 256, rnn_type: str = "gru",
-                  weights_dtype="bfloat16", seed: int = 0, pos0: int = 0,
-                  gumbel=None, ops: Ops = KERNELS):
-    """Counterpart of ``generate_full_pallas`` (n_rnn=1, unconditioned).
+                  weights_dtype="bfloat16", seed: int = 0, pos0=0,
+                  gumbel=None, cond_rate: int = 0, ext_proj=None,
+                  cond_phase=None, lane_keys=None, ops: Ops = KERNELS):
+    """Counterpart of ``generate_full_pallas`` (n_rnn=1).
 
     window [B, lookback] int32 seed context; states: tuple of per-tier
     model-layout states, [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32;
     tiers: tier params bottom -> top; temperature 0 = greedy.  Sampling
-    draws Philox noise from ``seed`` at absolute positions ``pos0 ..``, or
-    reads ``gumbel`` [n_bottom, f1, B, q] (the Pallas kernel's host-noise
-    input).  Returns
+    draws Philox noise from ``seed``, or from each lane's ``lane_keys``
+    [B, 2], at positions ``pos0 ..`` (an int, or a [B] tensor of per-lane
+    first positions), or reads ``gumbel`` [n_bottom, f1, B, q] (the Pallas
+    kernel's host-noise input).  Conditioning as the Pallas kernel's:
+    ``cond_rate``, ``ext_proj`` (per tier [R, B, H] float32 projected rows,
+    each lane's from its own row origin) and ``cond_phase`` [B] (each
+    lane's first position modulo ``cond_rate``).  Returns
     (levels [B, n_top*lookback] int32 -- the Pallas kernel's
     [n_top, B, lookback] blocks laid end to end per lane -- and the final
     states)."""
     _check_scope(tiers, rnn_type)
     dt = torch_dtype(weights_dtype)
     weights = prepare(tiers, mlp, dt, ops)
+    cond = None
+    if cond_rate:
+        dev = window.device
+        cond = (tuple(torch.as_tensor(e, dtype=torch.float32, device=dev)
+                      for e in ext_proj),
+                torch.as_tensor(cond_phase, device=dev).to(
+                    torch.int32).reshape(-1).contiguous(), int(cond_rate))
     return run(weights, window.to(torch.int32), states, temperature, n_top,
-               q_levels, ops, seed, pos0, gumbel)
+               q_levels, ops, seed, pos0, gumbel, cond, lane_keys)
 
 
 def generate_full_plain(window, states, temperature, tiers, mlp, **kw):

@@ -286,11 +286,17 @@ def test_entry_points_and_scope():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgen.generate_levels(tp, tc, B, 8, None)
-    for kw in ({"cond": torch.zeros(B, 1, 4)}, {"speakers": [0, 1]},
-               {"lane_keys": np.zeros((B, 2), np.uint32)},
-               {"cond_pos0": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
+    # conditioning on a model without cond_dim (or speakers) is refused;
+    # per-lane noise and positions run on every route
+    for kw in ({"cond": torch.zeros(B, 1, 4)}, {"speakers": [0, 1]}):
+        with pytest.raises(ValueError, match="without"):
             tgen.generate_levels(tp, tc, B, 8, None, device="cpu", **kw)
+    for kw in ({"lane_keys": np.zeros((B, 2), np.uint32)},
+               {"cond_pos0": 3}, {"noise_pos0": np.array([0, 5])}):
+        for route in (True, False):
+            lv = tgen.generate_levels(tp, tc, B, 8, 0.9, device="cpu",
+                                      use_kernels=route, **kw)
+            assert lv.shape == (B, 8)
     wave = tgen.generate(tp, tc, B, 10, temperature=0.7, device="cpu")
     assert wave.shape == (B, 10) and wave.abs().max() <= 1.0
     fn = tgen.make_generator(tc, B, 16, None, use_kernels=True,

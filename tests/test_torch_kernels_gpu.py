@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K6 against their plain versions, on the card, and
-the training route's behaviour on CUDA tensors.
+"""The CUDA kernels K1-K6 against their plain versions, on the card, the
+training route's behaviour on CUDA tensors, and pool lanes against solo
+streams (batch independence of K1 and K2).
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 tests/conftest.py imports JAX; on a GPU host without JAX run them with
@@ -56,6 +57,36 @@ def test_gemm_bias_matches_plain(cuda, dtype):
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_bias_conditioning_epilogue_matches_plain(cuda, dtype):
+    """K2's conditioning epilogue: the kernel's result with it equals its
+    result without it plus the selected row, exactly (the add is last),
+    and agrees with the plain version; phases cover both rows and the
+    clamp of the high row."""
+    gen = torch.Generator().manual_seed(11)
+    m, k, n, rows, rate = 70, 48, 96, 3, 10
+    a = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32)
+    w = torch.randn(k, n, generator=gen).to(dtype)
+    bias, add = torch.randn(n, generator=gen), torch.randn(m, n, generator=gen)
+    # [B, R, N] storage read as [R, B, N]: the projected rows' layout
+    ext = torch.randn(m, rows, n, generator=gen).transpose(0, 1)
+    phase = torch.randint(0, rate, (m,), generator=gen, dtype=torch.int32)
+    a, w, bias, add, ext, phase = (t.to(cuda) for t in
+                                   (a, w, bias, add, ext, phase))
+    base = kdec.gemm_bias(a, w, bias, add, levels_q=256)
+    for pos in (0, 6, 13, 27):
+        kw = dict(ext=ext, cphase=phase, pos=pos, cond_rate=rate)
+        got = kdec.gemm_bias(a, w, bias, add, levels_q=256, **kw)
+        lo = pos // rate
+        hi = min(lo + 1, rows - 1)
+        bump = (phase.long() + pos % rate >= rate)[:, None]
+        row = torch.where(bump, ext[hi], ext[lo])
+        torch.testing.assert_close(got, base + row, rtol=0, atol=0)
+        torch.testing.assert_close(
+            got, kdec.gemm_bias_plain(a, w, bias, add, 256, **kw),
+            atol=1e-5 * k ** 0.5, rtol=1e-5)
+
+
 def test_gru_gates_matches_plain(cuda):
     gen = torch.Generator().manual_seed(2)
     xg, hg = (torch.randn(7, 3 * 33, generator=gen).to(cuda)
@@ -92,6 +123,68 @@ def test_frame_decode_matches_plain_f32(cuda, temp, supplied):
     want = kdec.frame_decode_plain(window, cond, bup, mw, temp, noise,
                                    seed=9, pos0=123)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("temp", [0.9, 0.0])
+def test_frame_decode_lane_keys_match_plain_f32(cuda, temp):
+    """K1's noise mode 3 (per-lane keys, per-lane positions) against its
+    plain version; a partial cluster tile (6 lanes)."""
+    from samplernn_pase_tpu_torch.ops.kernels import noise as tnoise
+    cfg, params = _model(cuda)
+    f1, b = cfg.frame_sizes[0], 6
+    mw = kdec.prepare_mlp(params["mlp"], torch.float32, f1)
+    gen = torch.Generator().manual_seed(12)
+    window = torch.randint(0, 256, (b, f1), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    cond = torch.randn(b, f1 * cfg.dim, generator=gen).to(cuda)
+    keys = np.stack([tnoise.lane_key(5, lane, 2) for lane in range(b)])
+    lane_pos = torch.tensor([0, 3, 1 << 32, 17, 5, 9], device=cuda)
+    got = kdec.frame_decode(window, cond, None, mw, temp, None, 0, 40,
+                            lane_keys=keys, lane_pos=lane_pos)
+    want = kdec.frame_decode_plain(window, cond, None, mw, temp, None, 0, 40,
+                                   lane_keys=keys, lane_pos=lane_pos)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # lane 3 alone draws the same noise as in the batch
+    one = kdec.frame_decode(window[3:4], cond[3:4], None, mw, temp, None, 0,
+                            40, lane_keys=keys[3:4], lane_pos=lane_pos[3:4])
+    torch.testing.assert_close(one[0], got[3], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("temp", [None, 0.9])
+def test_pool_lanes_equal_solo_streams_bf16(cuda, temp):
+    """A conditioned pool of 8 lanes on the card, bf16, staggered joins
+    at different sub-row phases: each lane is bit-equal to a solo B=1
+    StreamingGenerator with its stream (and key), which takes K1 with a
+    single partial lane tile and K2 with one row."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import noise as tnoise
+    from samplernn_pase_tpu_torch.serve import StreamPool
+    cfg = SampleRNNConfig(frame_sizes=(8, 4), dim=128, embed_dim=16,
+                          cond_dim=16, cond_rate=20,
+                          compute_dtype="bfloat16")
+    params = samplernn.init_params(torch.Generator().manual_seed(3), cfg,
+                                   cuda)
+    gen = torch.Generator().manual_seed(4)
+    conds = [torch.randn(int(r), 16, generator=gen).numpy()
+             for r in (9, 3, 6, 12, 2, 7, 5, 8)]
+    chunk = cfg.lookback
+    pool = StreamPool(params, cfg, n_lanes=8, temperature=temp, seed=9,
+                      device=cuda)
+    kdec.reset_launches()
+    outs, joined = [], {}
+    for step in range(4):
+        for c in range(2 * step, 2 * step + 2):
+            joined[pool.start(cond=conds[c])] = step
+        outs.append(pool.emit(chunk))
+    assert kdec.LAUNCHES["frame_decode"] and kdec.LAUNCHES["gemm_bias"]
+    for lane, s0 in joined.items():
+        key = None if temp is None else tnoise.lane_key(9, lane, 0)
+        sg = tgen.StreamingGenerator(params, cfg, 1, temperature=temp,
+                                     stream_keys=key, device=cuda)
+        sg.set_cond(conds[lane])
+        solo = torch.cat([sg.emit(chunk)[0] for _ in range(4 - s0)])
+        got = torch.cat([o[lane] for o in outs[s0:]])
+        torch.testing.assert_close(got, solo, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("frame_sizes", [(4, 2), (4, 2, 2)])
