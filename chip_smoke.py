@@ -58,14 +58,35 @@ Phases (any failure ends the run with a non-zero exit):
    them; exact launch counts; four lanes bit-equal to solo B=1
    StreamingGenerators on the card; per-chunk wall time, samples/s and
    the device's idle share;
-9. a {"kernels": [...]} line, then the last line
+9. the stacked flagship (configs/c5_gen_b128.json's model with n_rnn=2
+   and weight norm, built here): generate_levels greedy and sampled
+   (T=0.95) at B=128, 1,024 samples, one make_generator(use_kernels=
+   "frame") request equal to the sampled one, exactly 44 launches per top
+   frame (counted per kernel), rescoring >= 0.99, generate() to a
+   waveform through K7's decode (equal to the plain decode, K7's encode
+   taking it back to the levels); then a StreamPool of 128 lanes over 2
+   chunks, two lanes bit-equal to solo B=1 streams;
+10. the stacked flagship's train step at B=128, seq_len 1024 (2 warm, 5
+   timed): K4 forward and backward 4 times per step (2 tiers x 2
+   layers), a finite falling NLL, one step against the scan route as in
+   phase 4;
+11. the roofline entry point (samplernn_pase_tpu_torch.scripts.
+   vpu_ceiling), K8's and K9's own path: K8, K9 and the flagship's
+   generation timed per step;
+12. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Phase 2 also holds config 4's kernel modes against their plain versions:
 K2's conditioning epilogue at both tier inputs (exact against K2 without
 it plus the selected row, at positions that take and skip the two-row
 bump) and at the projection of the cond rows, and K1's per-lane-key noise
-(mode 3), with lane batch independence.
+(mode 3), with lane batch independence; K2 at the stacked flagship's
+products; K7 (codec) bit for bit against its plain version on the card
+(and decode within 3 ulp of the CPU's), K8 (vpu_tail) with equal samples
+and K9 (mxu_stream) within 2**-7 of its largest value, each timed beside
+its bound; and, float32 at small width, stacked generate_full against its
+plain twin and the kernel route against the plain route on a 1-tier, a
+4-tier and an f1=1 model.
 
 It imports nothing of JAX.  Without a CUDA device, or run from a
 directory without the port beside it, it exits non-zero and prints no
@@ -463,10 +484,13 @@ def check_routes(torch, dev, cfg, params, x, y):
     require(worst <= 0.1, "a gradient differs from the scan route")
 
 
-def train_path(torch, dev, cfg, params, card):
-    """The flagship's TBPTT train step on the kernel route: 2 warm steps,
-    5 timed; launch counts, NLL, the profiler split, and one step's NLL
-    and gradients against the plain scan route.  Returns the K4 launch
+def train_path(torch, dev, cfg, params, card, name="flagship",
+               entry=True):
+    """A 2-tier GRU's TBPTT train step on the kernel route (the flagship,
+    or its stacked form): 2 warm steps, 5 timed; launch counts (one K4
+    forward and backward per tier and layer), NLL, the profiler split, and
+    one step's NLL and gradients against the plain scan route; with
+    ``entry``, graft_entry.entry() on the card.  Returns the K4 launch
     counts of the timed steps, or raises SmokeFailure."""
     import math
 
@@ -505,13 +529,15 @@ def train_path(torch, dev, cfg, params, card):
     step_s = (time.perf_counter() - t0) / 5
     launches = dict(rt.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"train path launches in 5 steps: {launches}; decode kernels "
-          f"{dict(kdec.LAUNCHES)}")
-    require(launches == {"gru_sequence_fwd": 10, "gru_sequence_bwd": 10,
+    print(f"{name} train path launches in 5 steps: {launches}; decode "
+          f"kernels {dict(kdec.LAUNCHES)}")
+    per_step = cfg.n_tiers * cfg.n_rnn
+    require(launches == {"gru_sequence_fwd": 5 * per_step,
+                         "gru_sequence_bwd": 5 * per_step,
                          "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0},
-            f"K4 launches {launches}, expected 2 of each per step")
+            f"K4 launches {launches}, expected {per_step} of each per step")
     nll_vals = [v.item() for v in nlls]
-    print("train NLL per step (bits): " + ", ".join(
+    print(f"{name} train NLL per step (bits): " + ", ".join(
         f"{v:.4f}" for v in nll_vals))
     require(all(math.isfinite(v) for v in nll_vals), "non-finite NLL")
     require(nll_vals[-1] < nll_vals[0], "the NLL did not fall")
@@ -522,9 +548,9 @@ def train_path(torch, dev, cfg, params, card):
     fwd_flops += 2.0 * b * (t + f1 - 1) * cfg.q_levels * e
     for k, span in enumerate(cfg.tier_spans):
         nf = t // span
-        fwd_flops += 2.0 * b * nf * (span * hd + 2 * hd * 3 * hd
+        fwd_flops += 2.0 * b * nf * (span * hd + 2 * cfg.n_rnn * hd * 3 * hd
                                      + hd * cfg.frame_sizes[k] * hd)
-    print(f"train step, flagship B={b}, seq_len {t}, kernel route: "
+    print(f"train step, {name} B={b}, seq_len {t}, kernel route: "
           f"{step_s * 1e3:.2f} ms per step ({warm:.2f} s for the 2 warm "
           f"steps), {b * t / f1 / step_s:,.0f} bottom frames/s, "
           f"{b * t / step_s:,.0f} samples/s, peak memory "
@@ -533,6 +559,8 @@ def train_path(torch, dev, cfg, params, card):
           f"{3 * fwd_flops / PEAK_BF16 * 1e3:.2f} ms at {PEAK_BF16 / 1e12:.0f} "
           f"TFLOP/s; on {card}")
     check_routes(torch, dev, cfg, params, x, y)
+    if not entry:
+        return launches
     fn, eargs = graft_entry.entry()
     enll, _ = fn(*eargs)
     require(eargs[2].is_cuda and math.isfinite(enll.item()),
@@ -545,12 +573,12 @@ def k2_cases(torch, dev, gen, cfg, params, weights, b: int, n_top: int):
     """K2's distinct products on a decode path at its shapes, on random
     activations from gen (drawn h, upper, window, x first, as the
     flagship's checks always drew them): per tier its input (levels, +
-    upper below the top), the input gates, the recurrent gates (+ xg as
-    ``add`` for an LSTM) and the upsample; and the f1 products that fold
-    the embedding into the MLP's first layer in float32 (prepare_mlp, run
-    once per make_generator request).  Returns ([(name, a, w, bias, add,
-    levels_q, launches in the path's run of n_top top frames)], h, the
-    window)."""
+    upper below the top), per stacked layer the input gates and the
+    recurrent gates (+ xg as ``add`` for an LSTM), and the upsample; and
+    the f1 products that fold the embedding into the MLP's first layer in
+    float32 (prepare_mlp, run once per make_generator request).  Returns
+    ([(name, a, w, bias, add, levels_q, launches in the path's run of n_top
+    top frames)], h, the window)."""
     from samplernn_pase_tpu_torch.ops import weight_norm as wnorm
 
     q, hd, f1 = cfg.q_levels, cfg.dim, cfg.frame_sizes[0]
@@ -565,15 +593,16 @@ def k2_cases(torch, dev, gen, cfg, params, weights, b: int, n_top: int):
     for k, (tw, span) in enumerate(zip(weights["tiers"], cfg.tier_spans)):
         n = n_top * (cfg.lookback // span)
         top = k == cfg.n_tiers - 1
-        cases += [
-            (f"tier{k} input", win[:, -span:], tw["w_in"], tw["b_in"],
-             None if top else upper, q, n),
-            (f"tier{k} gate x", x, tw["w_ih"], tw["b_ih"], None, 0, n),
-            (f"tier{k} gate h" + (" +xg" if lstm else ""), h, tw["w_hh"],
-             tw["b_hh"], xg, 0, n),
-            (f"tier{k} upsample", h, tw["w_up"],
-             None if k == 0 else tw["b_up_flat"], None, 0, n),
-        ]
+        cases.append((f"tier{k} input", win[:, -span:], tw["w_in"],
+                      tw["b_in"], None if top else upper, q, n))
+        for i, lw in enumerate(tw["layers"]):
+            at = f"tier{k}" + (f" layer{i}" if len(tw["layers"]) > 1 else "")
+            cases += [
+                (f"{at} gate x", x, lw["w_ih"], lw["b_ih"], None, 0, n),
+                (f"{at} gate h" + (" +xg" if lstm else ""), h, lw["w_hh"],
+                 lw["b_hh"], xg, 0, n)]
+        cases.append((f"tier{k} upsample", h, tw["w_up"],
+                      None if k == 0 else tw["b_up_flat"], None, 0, n))
     mlp = params["mlp"]
     embed = mlp["embed"].float().contiguous()
     e = embed.shape[1]
@@ -797,6 +826,61 @@ def check_lstm_gates(torch, dev, kdec, b: int, hdim: int):
     return err, ms, pms, lms, bd, by
 
 
+def decode_launches(cfg, n: int, lane_keys: bool = False) -> dict:
+    """Decode-kernel launches of one call of n samples: per tier step
+    2 + 2 n_rnn K2 (input, two gate products per layer, upsample) and
+    n_rnn K3 (GRU) or K6 (LSTM), per bottom frame one K1 (in its lane-key
+    mode with ``lane_keys``); a conditioned model's tier inputs take K2's
+    conditioning epilogue, and each call projects its rows once per tier
+    (one K2 each)."""
+    n_top = n // cfg.lookback
+    steps = n_top * sum(cfg.lookback // s for s in cfg.tier_spans)
+    k1 = n_top * cfg.lookback // cfg.frame_sizes[0]
+    cond = bool(cfg.cond_dim)
+    counts = {"frame_decode": k1,
+              "gemm_bias": steps * (2 + 2 * cfg.n_rnn)
+              + (cfg.n_tiers if cond else 0),
+              "gru_gates": 0, "lstm_gates": 0,
+              "gemm_bias_cond": steps if cond else 0,
+              "frame_decode_lane_keys": k1 if lane_keys else 0}
+    counts["gru_gates" if cfg.rnn_type == "gru" else "lstm_gates"] = (
+        steps * cfg.n_rnn)
+    return counts
+
+
+def path_bound(cfg, b: int):
+    """A decode path's bound per top frame at batch b: the sum of each
+    launch's bound (K2: A, W, bias, add and C; K3: xg, hg, h and h'; K6:
+    g, c and h', c'; K1: every W' row, which a B=128 frame's windows touch,
+    as phase 2's K1 check counts) -> (ms, launches per top frame)."""
+    q, hd, f1 = cfg.q_levels, cfg.dim, cfg.frame_sizes[0]
+    lstm = cfg.rnn_type == "lstm"
+    gates = 4 if lstm else 3
+
+    def k2(k, n, add):
+        return bound(b * k * 4 + k * n * 2 + n * 4 + b * n * 4 * (1 + add),
+                     2.0 * b * k * n, PEAK_BF16)[0]
+
+    k1 = bound(2 * b * f1 * 4 + b * f1 * hd * 4 + f1 * hd * 4
+               + f1 * q * hd * 2 + (hd * hd + hd * q) * 2
+               + (2 * hd + q) * 4, 2.0 * b * f1 * (hd * hd + hd * q),
+               PEAK_BF16)[0]
+    cell = (bound(4.0 * 7 * b * hd, 20.0 * b * hd, PEAK_F32)[0] if lstm
+            else bound(4.0 * 8 * b * hd, 12.0 * b * hd, PEAK_F32)[0])
+    total, launches = 0.0, 0
+    for k, span in enumerate(cfg.tier_spans):
+        # input (+ upper below the top), per layer xg and hg (+ xg for an
+        # LSTM) and the cell, the upsample (, K1)
+        step = (k2(span, hd, k < cfg.n_tiers - 1)
+                + cfg.n_rnn * (k2(hd, gates * hd, False)
+                               + k2(hd, gates * hd, lstm) + cell)
+                + k2(hd, cfg.frame_sizes[k] * hd, False)
+                + (k1 if k == 0 else 0.0))
+        total += step * (cfg.lookback // span)
+        launches += (2 + 3 * cfg.n_rnn + (k == 0)) * (cfg.lookback // span)
+    return total, launches
+
+
 def c2_generation(torch, dev, exp, params, weights, k2_launches: int, card):
     """Config 2's generation on the kernel route (K1, K2, K6) at B=128 on
     params and their kernel weights: greedy, sampled at the config's
@@ -826,17 +910,13 @@ def c2_generation(torch, dev, exp, params, weights, k2_launches: int, card):
     launches = dict(kdec.LAUNCHES)
     print(f"config 2 generation launches (3 requests): {launches}")
     n_top = n // cfg.lookback
-    per_top = {"frame_decode": cfg.lookback // cfg.frame_sizes[0],
-               "lstm_gates": 1 + cfg.frame_sizes[2]
-               + cfg.lookback // cfg.frame_sizes[0]}
-    for name, k in per_top.items():
-        require(launches[name] == 3 * n_top * k,
-                f"{name}: {launches[name]} launches, expected "
-                f"{3 * n_top * k}")
-    require(launches["gemm_bias"] == k2_launches
-            and launches["gru_gates"] == 0,
-            f"config 2 launches {launches}, expected gemm_bias "
-            f"{k2_launches} and gru_gates 0")
+    want = {k: 3 * v for k, v in decode_launches(cfg, n).items()}
+    want["gemm_bias"] += cfg.frame_sizes[0]   # make_generator's MLP fold
+    require(launches == want, f"config 2 launches {launches}, expected "
+            f"{want}")
+    require(launches["gemm_bias"] == k2_launches,
+            f"gemm_bias: {launches['gemm_bias']} launches, phase 2 weighted "
+            f"its cases by {k2_launches}")
     for name, lv in (("greedy", greedy), ("sampled", sampled),
                      ("frame", frame)):
         require(lv.shape == (b, n) and lv.dtype == torch.int32,
@@ -874,28 +954,7 @@ def c2_generation(torch, dev, exp, params, weights, k2_launches: int, card):
           f"of the unprofiled request's {t_sampled * 1e3:.1f} ms; "
           + ", ".join(f"{g} {t:.1f} ms/{c}" for g, (t, c) in
                       groups.items()))
-    # the path's bound per top frame: the sum of each launch's bound (K2:
-    # A, W, bias, add and C; K6: g, c and h', c'; K1: every W' row, which
-    # a B=128 frame's windows touch, as phase 2's K1 check counts)
-    hd, f1 = cfg.dim, cfg.frame_sizes[0]
-
-    def k2(k, n, add):
-        return bound(b * k * 4 + k * n * 2 + n * 4 + b * n * 4 * (1 + add),
-                     2.0 * b * k * n, PEAK_BF16)[0]
-
-    k1 = bound(2 * b * f1 * 4 + b * f1 * hd * 4 + f1 * hd * 4
-               + f1 * q * hd * 2 + (hd * hd + hd * q) * 2
-               + (2 * hd + q) * 4, 2.0 * b * f1 * (hd * hd + hd * q),
-               PEAK_BF16)[0]
-    top_bound, top_launches = 0.0, 0
-    for k, span in enumerate(cfg.tier_spans):
-        # input (+ upper below the top), xg, hg + xg, upsample, K6 (, K1)
-        step = (k2(span, hd, k < cfg.n_tiers - 1) + k2(hd, 4 * hd, False)
-                + k2(hd, 4 * hd, True) + k2(hd, cfg.frame_sizes[k] * hd, False)
-                + bound(4.0 * 7 * b * hd, 20.0 * b * hd, PEAK_F32)[0]
-                + (k1 if k == 0 else 0.0))
-        top_bound += step * (cfg.lookback // span)
-        top_launches += (5 + (k == 0)) * (cfg.lookback // span)
+    top_bound, top_launches = path_bound(cfg, b)
     print(f"config 2 generation path bound: {top_bound:.3f} ms per top frame "
           f"(the sum of its {top_launches} launches' bounds)")
     print(f"config 2 generation, B={b}, {n} samples: greedy "
@@ -974,21 +1033,6 @@ def c2_train_path(torch, dev, exp, card):
     return launches
 
 
-def c4_launches(cfg, n: int, lane_keys: bool) -> dict:
-    """Decode-kernel launches of one conditioned call of n samples on a
-    2-tier GRU: per top frame 20 K2 (tier input, two gates, upsample per
-    tier step; 1 + frame_sizes[1] steps), 5 K3, frame_sizes[1] K1, of
-    which the tier inputs take the conditioning epilogue; per call one K2
-    projection per tier."""
-    n_top = n // cfg.lookback
-    steps = 1 + cfg.frame_sizes[1]
-    k1 = n_top * cfg.frame_sizes[1]
-    return {"frame_decode": k1, "gemm_bias": n_top * 4 * steps + 2,
-            "gru_gates": n_top * steps, "lstm_gates": 0,
-            "gemm_bias_cond": n_top * steps,
-            "frame_decode_lane_keys": k1 if lane_keys else 0}
-
-
 def add_counts(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in total | more}
 
@@ -1037,7 +1081,7 @@ def c4_generation(torch, dev, exp, params, weights, card):
     for calls, length, keyed in ((1, n, True), (3, n, False),
                                  (4, n // 4, True)):
         for _ in range(calls):
-            want = add_counts(want, c4_launches(cfg, length, keyed))
+            want = add_counts(want, decode_launches(cfg, length, keyed))
     want["gemm_bias"] += cfg.frame_sizes[0]   # make_generator's MLP fold
     print(f"config 4 generation launches (4 requests, one split in 4 "
           f"calls): {launches}")
@@ -1152,7 +1196,7 @@ def c4_serving(torch, dev, exp, params, card):
     launches = dict(kdec.LAUNCHES)
     want = {}
     for _ in range(C4_CHUNKS):
-        want = add_counts(want, c4_launches(cfg, chunk, True))
+        want = add_counts(want, decode_launches(cfg, chunk, True))
     want["gemm_bias"] += cfg.frame_sizes[0]   # kernel weights, first emit
     print(f"config 4 pool launches ({C4_CHUNKS} chunks): {launches}")
     require(launches == want, f"pool launches {launches}, expected {want}")
@@ -1200,6 +1244,374 @@ def c4_serving(torch, dev, exp, params, card):
           f"{busy:.1f} ms, idle share {1 - busy / (med * 1e3):.3f} of the "
           f"median chunk (profiler on: wall {pwall:.1f} ms); on {card}")
     return launches
+
+
+def codec_checks(torch, dev):
+    """K7 against its plain version (ops/mulaw.py's PyTorch ops) on the
+    card, bit for bit: encode over [128, 16384] uniform floats in
+    [-1.2, 1.2) (2**21 of them) and every level boundary and one ulp
+    either side; decode over all 256 levels, and within 3 ulp of the plain
+    version on the CPU (ROADMAP.md C).  Each timed at [128, 16384] beside
+    its plain version and its bytes bound.  Returns {"encode"|"decode":
+    {"err", "ms", "plain", "bound", "by"}}, or raises SmokeFailure."""
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.ops.kernels import codec
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.rand(BATCH, 16384, device=dev, generator=gen) * 2.4 - 1.2
+    # level k starts where (y + 1) * 0.5 * mu + 0.5 reaches k, mu = 255
+    mu = 255.0
+    y = 2.0 * (np.arange(1, 256) - 0.5) / mu - 1.0
+    xb = (np.sign(y) * np.expm1(np.abs(y) * np.log1p(mu)) / mu).astype(
+        np.float32)
+    edges = np.concatenate([np.nextafter(xb, np.float32(-2)), xb,
+                            np.nextafter(xb, np.float32(2))])
+    edges = torch.from_numpy(edges[None]).to(dev)
+    for name, inp in (("random", x), ("level boundaries", edges)):
+        got = codec.mu_law_encode(inp)
+        want = codec.mu_law_encode_plain(inp)
+        require(torch.equal(got, want),
+                f"codec encode ({name}): {(got != want).sum().item()} "
+                "levels differ from the plain version on the card")
+    levels = torch.arange(256, dtype=torch.int32, device=dev)[None]
+    got = codec.mu_law_decode(levels)
+    require(torch.equal(got, codec.mu_law_decode_plain(levels)),
+            "codec decode differs from the plain version on the card")
+    # ulps apart: the float32 bit patterns as integers (one sign per level)
+    ulps = (got.cpu().view(torch.int32).long() - codec.mu_law_decode_plain(
+        levels.cpu()).view(torch.int32).long()).abs().max().item()
+    require(ulps <= 3, f"codec decode: {ulps} ulp from the CPU plain "
+            "version (bound 3)")
+    lv = torch.randint(0, 256, (BATCH, 16384), device=dev, generator=gen,
+                       dtype=torch.int32)
+    nbytes = 8.0 * x.numel()          # 4 bytes read and 4 written each
+    out = {}
+    for name, fn, plain, inp in (
+            ("encode", codec.mu_law_encode, codec.mu_law_encode_plain, x),
+            ("decode", codec.mu_law_decode, codec.mu_law_decode_plain, lv)):
+        ms, wall = device_ms(torch, lambda: fn(inp), 50)
+        pms, _ = device_ms(torch, lambda: plain(inp), 20)
+        # elementwise arithmetic, two transcendental functions of about 20
+        # operations each: far below the float32 rate
+        bd, by = bound(nbytes, 50.0 * x.numel(), PEAK_F32)
+        out[name] = {"err": 0.0, "ms": ms, "plain": pms, "bound": bd,
+                     "by": by}
+        what = ("2**21 floats and the 765 boundary values" if name == "encode"
+                else f"all 256 levels; {ulps} ulp from the CPU's")
+        print(f"K7 codec {name} [{BATCH}, 16384]: bit-equal to the plain "
+              f"version on the card ({what}); {ms * 1e3:.1f} us (wall per "
+              f"call {wall * 1e3:.1f} us), plain {pms * 1e3:.1f} us, bound "
+              f"{bd * 1e3:.2f} us ({by})")
+    return out
+
+
+def roofline_checks(torch, dev):
+    """K8 and K9 against their plain versions on the card at the
+    flagship's shapes (the script's inputs): K8's samples and one-hot ring
+    equal with supplied noise and with Philox noise; K9's accumulator
+    within 2**-7 of its largest value (bf16 inputs, float32 sums taken in
+    another order, so a bf16 rounding of the hidden activations may land
+    on the other side, and every step repeats it: the inputs do not
+    change from step to step).  Timed as the script calls them: K8 with Philox noise
+    over N_STEPS steps, K9 over 16 frames, beside their plain versions,
+    their bounds and, for K9, torch.mm on the same products.  Returns
+    {"vpu_tail"|"mxu_stream": {"err", "ms", "plain", "bound", "by",
+    "lib"}}, or raises SmokeFailure."""
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+
+    x = vc.inputs(dev)
+    b, q, f1, hd = vc.B, vc.Q, vc.F1, vc.H
+    for use_prng in (False, True):
+        got, ring = vc.vpu_tail(x["logits"], x["gum"], 5, n_frames=3,
+                                use_prng=use_prng, return_ring=True)
+        want, wring = vc.vpu_tail_plain(x["logits"], x["gum"], 5,
+                                        n_frames=3, use_prng=use_prng)
+        require(torch.equal(got, want) and torch.equal(ring, wring),
+                f"vpu_tail (use_prng={use_prng}): samples or ring differ "
+                "from the plain version")
+    names = ("ebuf", "w1", "w2", "wh", "wo", "wup")
+    bf = [x[k].to(torch.bfloat16) for k in names]
+    got = vc.mxu_stream(*bf, n_frames=1)
+    want = vc.mxu_stream_plain(*bf, n_frames=1)
+    err9 = (got - want).abs().max().item()
+    tol9 = 2 ** -7 * want.abs().max().item()
+    require(err9 <= tol9, f"mxu_stream: max abs err {err9} > {tol9}")
+
+    n_frames = vc.N_STEPS // f1
+    ms8, wall8 = device_ms(torch, lambda: vc.vpu_tail(
+        x["logits"], x["gum"], 9, n_frames=n_frames, use_prng=True), 3)
+    pms8, _ = device_ms(torch, lambda: vc.vpu_tail_plain(
+        x["logits"], x["gum"], 9, n_frames=n_frames, use_prng=True), 1)
+    steps = n_frames * f1
+    # bytes: logits, the samples and the ring; operations per level and
+    # step: the scaled add and the compare (3), and the noise (Philox's
+    # 10 rounds per 4 levels, about 25 integer operations a level, and the
+    # transform's 5)
+    bd8, by8 = bound(4.0 * b * q + 4.0 * b * f1 + 2.0 * b * f1 * q,
+                     33.0 * steps * b * q, PEAK_F32)
+    nf9 = 16
+    ms9, wall9 = device_ms(torch, lambda: vc.mxu_stream(*bf, n_frames=nf9), 3)
+    pms9, _ = device_ms(torch, lambda: vc.mxu_stream_plain(
+        *bf, n_frames=nf9), 1)
+    e, w1, w2, wh, wo, wup = bf
+    head = e[:, :vc.HEAD].contiguous()
+    tail = e[:, vc.HEAD:].contiguous()
+    first = e[:, :hd].contiguous()
+
+    def library():
+        # the same products through torch.mm in bf16: never called by the
+        # port, the yardstick
+        for _ in range(nf9):
+            torch.mm(first, wup)
+            for _ in range(f1):
+                hm = torch.relu(torch.mm(head, w1) + torch.mm(tail, w2))
+                torch.mm(torch.relu(torch.mm(hm, wh)), wo)
+
+    lms9, _ = device_ms(torch, library, 3)
+    flops9 = nf9 * 2.0 * b * (f1 * (f1 * q * hd + hd * hd + hd * q)
+                              + hd * f1 * hd)
+    nbytes9 = (2.0 * b * f1 * q + 2.0 * (f1 * q * hd + hd * hd + hd * q
+                                         + hd * f1 * hd) + 4.0 * b * q)
+    bd9, by9 = bound(nbytes9, flops9, PEAK_BF16)
+    print(f"K8 vpu_tail [B={b}, q={q}, f1={f1}]: samples and ring equal to "
+          f"the plain version (supplied and Philox noise); {n_frames} frames "
+          f"with Philox noise {ms8 * 1e3:.1f} us (wall {wall8 * 1e3:.1f} us, "
+          f"{ms8 * 1e3 / steps:.3f} us per step), plain {pms8 * 1e3:.1f} us, "
+          f"bound {bd8 * 1e3:.2f} us ({by8})")
+    print(f"K9 mxu_stream [B={b}, H={hd}, q={q}, f1={f1}] bf16: max abs err "
+          f"{err9:.3g} (bound {tol9:.3g}, 2**-7 of max); {nf9} frames "
+          f"{ms9 * 1e3:.1f} us (wall {wall9 * 1e3:.1f} us, "
+          f"{ms9 * 1e3 / (nf9 * f1):.3f} us per step), plain "
+          f"{pms9 * 1e3:.1f} us, torch.mm {lms9 * 1e3:.1f} us, bound "
+          f"{bd9 * 1e3:.2f} us ({by9}, {flops9 / nf9 / 1e9:.1f} GFLOP per "
+          "frame)")
+    return {"vpu_tail": {"err": 0.0, "ms": ms8, "plain": pms8, "bound": bd8,
+                         "by": by8, "lib": None},
+            "mxu_stream": {"err": err9, "ms": ms9, "plain": pms9,
+                           "bound": bd9, "by": by9, "lib": lms9}}
+
+
+def scope_checks(torch, dev):
+    """The kernel route's scope beyond the megakernel's, float32 at small
+    width on the card: generate_full on stacked GRU and LSTM tiers
+    (n_rnn=2) against its plain twin, and generate_levels' kernel route
+    against its plain route, greedy, on a 1-tier, a 4-tier and an f1=1
+    model (all n_rnn=2).  Raises SmokeFailure."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.config import SampleRNNConfig
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.ops.kernels import megagen
+
+    b = 8
+    for rnn_type, sizes in (("gru", (4, 2)), ("lstm", (4, 2, 2))):
+        cfg = SampleRNNConfig(frame_sizes=sizes, dim=64, embed_dim=16,
+                              n_rnn=2, rnn_type=rnn_type,
+                              compute_dtype="float32")
+        p = samplernn.init_params(torch.Generator().manual_seed(11), cfg,
+                                  dev)
+        win = torch.full((b, cfg.lookback), 128, dtype=torch.int32,
+                         device=dev)
+        st = samplernn.initial_state(p, cfg, b)
+        for temp in (0.0, 0.9):
+            kw = dict(n_top=4, rnn_type=rnn_type, weights_dtype="float32",
+                      seed=4)
+            got, gs = megagen.generate_full(win, st, temp, p["tiers"],
+                                            p["mlp"], **kw)
+            want, ws = megagen.generate_full_plain(win, st, temp,
+                                                   p["tiers"], p["mlp"], **kw)
+            serr = max((u - v).abs().max().item() for u, v in zip(gs, ws))
+            require(torch.equal(got, want) and serr <= 1e-5,
+                    f"stacked {rnn_type} generate_full f32 T={temp}: samples "
+                    f"differ or state err {serr} > 1e-5")
+    for sizes in ((8,), (4, 2, 2, 2), (1, 16)):
+        cfg = SampleRNNConfig(frame_sizes=sizes, dim=64, embed_dim=16,
+                              n_rnn=2, compute_dtype="float32")
+        p = samplernn.init_params(torch.Generator().manual_seed(12), cfg,
+                                  dev)
+        n = cfg.lookback * max(2, 64 // cfg.lookback)
+        got = tgen.generate_levels(p, cfg, b, n, None, use_kernels=True,
+                                   device=dev)
+        want = tgen.generate_levels(p, cfg, b, n, None, use_kernels=False,
+                                    device=dev)
+        require(torch.equal(got, want),
+                f"frame_sizes {sizes}: the kernel route's greedy float32 "
+                f"samples differ from the plain route's "
+                f"({(got != want).float().mean().item():.4f})")
+    print("scope f32 small shapes: stacked (n_rnn=2) GRU and LSTM "
+          "generate_full equal to the plain versions; 1-tier (8,), 4-tier "
+          "(4, 2, 2, 2) and f1=1 (1, 16) greedy kernel route equal to the "
+          "plain route")
+
+
+def stacked_generation(torch, dev, cfg, params, weights, k2_launches: int,
+                       card):
+    """The stacked flagship's generation on the kernel route at B=128:
+    greedy and sampled at T=0.95 and one make_generator(use_kernels=
+    "frame") request equal to the sampled one; exactly 44 launches per top
+    frame, per kernel; levels and rescoring; generate() to a waveform
+    through K7's decode, equal to the plain decode of the sampled levels,
+    and K7's encode taking it back to them; the profiler split.  Returns
+    the decode and codec kernels' launch counts, or raises
+    SmokeFailure."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import codec
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+
+    b, q, n, temp = BATCH, cfg.q_levels, LENGTH, 0.95
+    n_top = n // cfg.lookback
+    kdec.reset_launches()
+    t0 = time.perf_counter()
+    greedy = tgen.generate_levels(params, cfg, b, n, None, seed=0,
+                                  device=dev, kernel_weights=weights)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampled = tgen.generate_levels(params, cfg, b, n, temp, seed=1,
+                                   device=dev, kernel_weights=weights)
+    torch.cuda.synchronize()
+    t_sampled = time.perf_counter() - t0
+    frame = tgen.make_generator(cfg, b, n, temp, use_kernels="frame",
+                                device=dev)(params, seed=1)
+    torch.cuda.synchronize()
+    launches = dict(kdec.LAUNCHES)
+    want = {k: 3 * v for k, v in decode_launches(cfg, n).items()}
+    want["gemm_bias"] += cfg.frame_sizes[0]   # make_generator's MLP fold
+    print(f"stacked flagship launches (3 requests of {n_top} top frames): "
+          f"{launches}")
+    require(launches == want, f"stacked flagship launches {launches}, "
+            f"expected {want}")
+    require(launches["gemm_bias"] == k2_launches,
+            f"gemm_bias: {launches['gemm_bias']} launches, phase 2 weighted "
+            f"its cases by {k2_launches}")
+    per_top = (sum(launches.values()) - launches["gemm_bias_cond"]
+               - launches["frame_decode_lane_keys"]
+               - cfg.frame_sizes[0]) / (3 * n_top)
+    require(per_top == 44, f"{per_top} launches per top frame, expected 44")
+    for name, lv in (("greedy", greedy), ("sampled", sampled),
+                     ("frame", frame)):
+        require(lv.shape == (b, n) and lv.dtype == torch.int32
+                and lv.min().item() >= 0 and lv.max().item() < q,
+                f"stacked {name}: shape {tuple(lv.shape)} {lv.dtype} or "
+                f"levels outside [0, {q})")
+    require(torch.equal(frame, sampled),
+            "stacked: make_generator(use_kernels='frame') differs from the "
+            "same sampled request through generate_levels")
+    agree_g = tgen.rescore(params, cfg, greedy, None, seed=0)
+    agree_s = tgen.rescore(params, cfg, sampled, temp, seed=1)
+    print(f"stacked flagship rescoring agreement (plain per-step modules, "
+          f"bf16): greedy {agree_g:.4f}, sampled {agree_s:.4f}; 44 launches "
+          f"per top frame; make_generator's request equal to "
+          f"generate_levels'")
+    require(min(agree_g, agree_s) >= 0.99,
+            "stacked flagship rescoring agreement below 0.99")
+    # generate() to a waveform: K7's decode, then K7's encode takes it back
+    codec.reset_launches()
+    wave = tgen.generate(params, cfg, b, n, temp, seed=1, device=dev)
+    back = codec.mu_law_encode(wave)
+    torch.cuda.synchronize()
+    codec_launches = dict(codec.LAUNCHES)
+    require(codec_launches == {"codec_encode": 1, "codec_decode": 1},
+            f"codec launches {codec_launches}, expected one of each")
+    require(torch.equal(wave, codec.mu_law_decode_plain(sampled)),
+            "generate(): the waveform differs from the plain decode of the "
+            "same request's levels")
+    require(torch.equal(back, sampled),
+            "K7 encode of the generated waveform differs from its levels")
+    print(f"stacked flagship generate(): waveform [{b}, {n}] through K7 "
+          f"decode, bit-equal to the plain decode of the sampled levels; K7 "
+          f"encode gives the levels back; codec launches {codec_launches}")
+    t0 = time.perf_counter()
+    times = kernel_times(torch, lambda: tgen.generate_levels(
+        params, cfg, b, n, temp, seed=1, device=dev, kernel_weights=weights))
+    wall = (time.perf_counter() - t0) * 1e3
+    groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
+              "gru_gates": [0.0, 0], "other": [0.0, 0]}
+    for key, (t, cnt) in times.items():
+        g = next((g for g in groups if g in key), "other")
+        groups[g][0] += t
+        groups[g][1] += cnt
+    busy = sum(t for t, _ in groups.values())
+    print(f"stacked flagship profiled sampled request: wall {wall:.1f} ms "
+          f"(profiler on), device busy {busy:.1f} ms ({busy / n_top:.3f} ms "
+          f"per top frame; K1 {groups['frame_decode'][0] / busy:.3f} of it), "
+          f"idle share {1 - busy / (t_sampled * 1e3):.3f} of the unprofiled "
+          f"request's {t_sampled * 1e3:.1f} ms; "
+          + ", ".join(f"{g} {t:.1f} ms/{c}" for g, (t, c) in groups.items()))
+    top_bound, top_launches = path_bound(cfg, b)
+    print(f"stacked flagship generation path bound: {top_bound:.3f} ms per "
+          f"top frame (the sum of its {top_launches} launches' bounds)")
+    print(f"stacked flagship generation (n_rnn=2, weight norm), B={b}, {n} "
+          f"samples: greedy {b * n / t_greedy:,.0f} samples/s "
+          f"({t_greedy:.3f} s), sampled (T={temp}) "
+          f"{b * n / t_sampled:,.0f} samples/s ({t_sampled:.3f} s, "
+          f"{t_sampled * 1e3 / n_top:.2f} ms per top frame); on {card}")
+    return add_counts(launches, codec_launches)
+
+
+def stacked_serving(torch, dev, cfg, params, card):
+    """The stacked flagship in a StreamPool of BATCH (128) lanes at
+    T=0.95: 3/4 of them from chunk 0, the rest joining at chunk 1, 2
+    chunks of LENGTH samples; exact launch counts; lanes 0 and 100 (one
+    of each group) bit-equal to solo B=1 StreamingGenerators with their
+    keys.  Returns the pool's launch counts, or raises SmokeFailure."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    from samplernn_pase_tpu_torch.serve import StreamPool
+
+    n_lanes, chunk, seed, temp = BATCH, LENGTH, 41, 0.95
+    pool = StreamPool(params, cfg, n_lanes=n_lanes, temperature=temp,
+                      seed=seed, device=dev)
+    kdec.reset_launches()
+    outs, walls = [], []
+    early = n_lanes * 3 // 4
+    for c in range(2):
+        for _ in range(early if c == 0 else n_lanes - early):
+            pool.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(pool.emit(chunk))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(kdec.LAUNCHES)
+    want = {k: 2 * v for k, v in decode_launches(cfg, chunk, True).items()}
+    want["gemm_bias"] += cfg.frame_sizes[0]   # kernel weights, first emit
+    require(launches == want, f"stacked pool launches {launches}, expected "
+            f"{want}")
+    for lane, first in ((0, 0), (n_lanes * 25 // 32, 1)):
+        sg = tgen.StreamingGenerator(params, cfg, 1, temperature=temp,
+                                     stream_keys=lane_key(seed, lane, 0),
+                                     device=dev)
+        solo = torch.cat([sg.emit(chunk)[0] for _ in range(2 - first)])
+        got = torch.cat([o[lane] for o in outs[first:]])
+        same = (got == solo).float().mean().item()
+        print(f"stacked pool lane {lane} (from chunk {first}) against a solo "
+              f"B=1 StreamingGenerator: {same:.4f} of {got.numel()} samples "
+              "equal")
+        require(same == 1.0, f"stacked pool lane {lane} differs from its "
+                "solo stream")
+    print(f"stacked flagship pool, {n_lanes} lanes, 2 chunks of {chunk} "
+          f"samples: chunk wall {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
+          f"ms; launches {launches}; on {card}")
+    return launches
+
+
+def roofline_path(torch, dev):
+    """The roofline entry point (``python -m samplernn_pase_tpu_torch.
+    scripts.vpu_ceiling``), K8's and K9's own path: its records, with
+    their launch counts.  Raises SmokeFailure."""
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+
+    vc.reset_launches()
+    records = vc.roofline(dev)
+    torch.cuda.synchronize()
+    launches = dict(vc.LAUNCHES)
+    for r in records:
+        print(f"vpu_ceiling: {json.dumps(r)}")
+    require(all(launches.values()),
+            f"the roofline script did not launch K8 and K9: {launches}")
+    return launches, records
 
 
 def main() -> int:
@@ -1263,6 +1675,11 @@ def main() -> int:
         return fail("configs/c4_tts_conditioned.json and "
                     "preset('c4_tts_conditioned') disagree on the model")
     exp4 = dataclasses.replace(exp4, model=model4)
+    # the stacked flagship: c5_gen_b128's model with two GRU layers per
+    # tier and weight norm (samplernn-pytorch's default model)
+    cfg5 = dataclasses.replace(
+        load_config(ROOT / "configs" / "c5_gen_b128.json").model, n_rnn=2,
+        weight_norm=True)
 
     # ---- flagship model (random weights from a seed) ----
     cfg = SampleRNNConfig(frame_sizes=(16, 4), dim=1024, embed_dim=256,
@@ -1290,6 +1707,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"config 4 params and kernel weights: "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params5 = samplernn.init_params(torch.Generator().manual_seed(13), cfg5,
+                                    dev)
+    weights5 = tgen.prepare_weights(params5, cfg5, dev)
+    torch.cuda.synchronize()
+    print(f"stacked flagship params and kernel weights: "
+          f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(1)
     t0w = time.perf_counter()
 
@@ -1304,10 +1728,16 @@ def main() -> int:
                             torch.Generator(device=dev).manual_seed(8),
                             exp2.model, params2, weights2, b,
                             3 * C2_LENGTH // exp2.model.lookback)
+    cases5, _, _ = k2_cases(torch, dev,
+                            torch.Generator(device=dev).manual_seed(14),
+                            cfg5, params5, weights5, b,
+                            3 * LENGTH // cfg5.lookback)
     try:
         k2 = {"flagship": check_gemm(torch, dev, kdec, cases, "flagship"),
               "c2_3tier_lstm": check_gemm(torch, dev, kdec, cases2,
-                                          "config 2")}
+                                          "config 2"),
+              "stacked_flagship": check_gemm(torch, dev, kdec, cases5,
+                                             "stacked")}
     except SmokeFailure as err:
         return fail(str(err))
 
@@ -1446,6 +1876,10 @@ def main() -> int:
         # phase 7's calls: 4 requests and one split in 4, 5 requests' worth
         k2c, k2p, k1c = c4_kernel_checks(torch, dev, kdec, tgen, exp4.model,
                                          weights4, BATCH, 5)
+        # this slice's kernels and the kernel route's wider scope
+        k7 = codec_checks(torch, dev)
+        k89 = roofline_checks(torch, dev)
+        scope_checks(torch, dev)
     except SmokeFailure as err:
         return fail(str(err))
     print(f"phase 2 (kernel checks and timing): "
@@ -1468,10 +1902,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(kdec.LAUNCHES)
     print(f"main path launches: {launches}")
-    if not all(launches[k] for k in ("frame_decode", "gemm_bias",
-                                     "gru_gates")) or launches["lstm_gates"]:
-        return fail(f"the flagship path's kernels did not launch, or "
-                    f"another did: {launches}")
+    want = {k: 3 * v for k, v in decode_launches(cfg, LENGTH).items()}
+    want["gemm_bias"] += f1                   # make_generator's MLP fold
+    if launches != want:
+        return fail(f"flagship launches {launches}, expected {want}")
     if launches["gemm_bias"] != k2["flagship"]["launches"]:
         return fail(f"gemm_bias: {launches['gemm_bias']} launches on the "
                     f"flagship path, expected {k2['flagship']['launches']}")
@@ -1549,10 +1983,32 @@ def main() -> int:
     print(f"phase 8 (config 4 serving): {time.perf_counter() - t0:.1f} s")
     c4_all = add_counts(c4_launches, pool_launches)
 
-    # ---- 9. the result lines ----
-    # K2 over both decode paths, each case weighted by its launches there
+    # ---- 9-11. the stacked flagship, and the roofline entry point ----
+    t0 = time.perf_counter()
+    try:
+        s5_launches = stacked_generation(
+            torch, dev, cfg5, params5, weights5,
+            k2["stacked_flagship"]["launches"], card)
+        s5_pool = stacked_serving(torch, dev, cfg5, params5, card)
+        print(f"phase 9 (stacked flagship generation and serving): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        s5_train = train_path(torch, dev, cfg5, params5, card,
+                              name="stacked flagship", entry=False)
+        print(f"phase 10 (stacked flagship training): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        k89_launches, _ = roofline_path(torch, dev)
+    except SmokeFailure as err:
+        return fail(str(err))
+    print(f"phase 11 (roofline entry point): {time.perf_counter() - t0:.1f} s")
+    s5_all = add_counts(s5_launches, s5_pool)
+
+    # ---- 12. the result lines ----
+    # K2 over the decode paths, each case weighted by its launches there
     k2_runs = {"flagship": launches["gemm_bias"],
-               "c2_3tier_lstm": c2_launches["gemm_bias"]}
+               "c2_3tier_lstm": c2_launches["gemm_bias"],
+               "stacked_flagship": s5_launches["gemm_bias"]}
     k2n = sum(k2_runs.values())
     k2_all = {key: sum(k2[p][key] * k2_runs[p] for p in k2) / k2n
               for key in ("ms", "plain", "lib", "bound")}
@@ -1564,7 +2020,8 @@ def main() -> int:
         {"name": "frame_decode", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:218",
-         "launches": launches["frame_decode"], "max_abs_err": err1,
+         "launches": launches["frame_decode"] + s5_all["frame_decode"],
+         "max_abs_err": err1,
          "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
          "library_ms": None},
         {"name": "gemm_bias", "route": "cuda",
@@ -1581,7 +2038,8 @@ def main() -> int:
         {"name": "gru_gates", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gru_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
-         "launches": launches["gru_gates"], "max_abs_err": err3,
+         "launches": launches["gru_gates"] + s5_all["gru_gates"],
+         "max_abs_err": err3,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": lms3},
         {"name": "lstm_gates", "route": "cuda",
@@ -1616,6 +2074,26 @@ def main() -> int:
          "rescore_bf16": k1c["agree"], "ms": k1c["ms"],
          "plain_ms": k1c["plain"], "bound_ms": k1c["bound"],
          "bound_by": k1c["by"], "library_ms": None},
+        # this slice's kernels: the codec on the stacked flagship's
+        # generate() path, the roofline pair on the script's own
+    ] + [
+        {"name": f"codec_{d}", "route": "cuda",
+         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/codec.cu",
+         "replaces": "samplernn_pase_tpu/ops/pallas/codec.py:35",
+         "launches": s5_launches[f"codec_{d}"],
+         "max_abs_err": k7[d]["err"], "ms": k7[d]["ms"],
+         "plain_ms": k7[d]["plain"], "bound_ms": k7[d]["bound"],
+         "bound_by": k7[d]["by"], "library_ms": None}
+        for d in ("encode", "decode")
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/roofline.cu",
+         "replaces": f"scripts/vpu_ceiling.py:{line}",
+         "launches": k89_launches[name], "max_abs_err": k89[name]["err"],
+         "ms": k89[name]["ms"], "plain_ms": k89[name]["plain"],
+         "bound_ms": k89[name]["bound"], "bound_by": k89[name]["by"],
+         "library_ms": k89[name]["lib"]}
+        for name, line in (("vpu_tail", 95), ("mxu_stream", 146))
     ] + [
         {"name": f"{cell}_sequence_{d}", "route": "cuda",
          "source": f"samplernn_pase_tpu_torch/ops/kernels/csrc/"
@@ -1633,7 +2111,8 @@ def main() -> int:
          "bound_by": max(st[d]["by"], key=st[d]["by"].get),
          "library_ms": st[d]["lib"]}
         for cell, st, seq_launches, tiers, nb in (
-            ("gru", k4, k4_launches, "64 and 16", BATCH),
+            ("gru", k4, add_counts(k4_launches, s5_train), "64 and 16",
+             BATCH),
             ("lstm", k5, k5_launches, "64, 16 and 4",
              exp2.train.batch_size))
         for d in ("fwd", "bwd")

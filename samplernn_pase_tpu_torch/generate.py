@@ -12,10 +12,11 @@ Routes, chosen by ``use_kernels``:
   the plain model modules (``tier_step``, ``mlp_step``), the logic of the
   reference's ``_xla_generate``.
 
-The kernel route takes GRU or LSTM tiers with n_rnn=1 at 2 or 3 tiers
-and frame_sizes[0] >= 2, conditioned or not; n_rnn stacks, other tier
-counts and f1=1 raise ``NotImplementedError`` there (the plain route runs
-them).  On CPU tensors the kernel route runs the kernels' plain versions,
+The kernel route takes every configuration the reference decodes: GRU
+or LSTM tiers of any ``n_rnn``, any tier count (a 1-tier model has no
+``upper``), any f1 (f1 = 1 included), conditioned or not; its loop is the
+counterpart of both the reference's megakernel and its per-frame route.
+On CPU tensors the kernel route runs the kernels' plain versions,
 which is how the tests hold it against the JAX package.  Its weights in
 kernel form (``prepare_weights``) belong to the model, not to a request:
 ``make_generator`` and the streaming classes prepare them once, and
@@ -49,13 +50,14 @@ import torch
 from samplernn_pase_tpu_torch.config import SampleRNNConfig
 from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import frame_rnn, sample_mlp, samplernn
+from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
 from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
 from samplernn_pase_tpu_torch.ops.kernels import megagen
 from samplernn_pase_tpu_torch.ops.kernels.noise import (
     as_lane_keys, gumbel_block, lane_gumbel_block)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 from samplernn_pase_tpu_torch.ops.mulaw import (
-    levels_to_float, linear_dequantize, mu_law_decode, quantize_zero)
+    levels_to_float, linear_dequantize, quantize_zero)
 from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -88,19 +90,11 @@ def fit_cond_stream(cond, n_frames: int) -> np.ndarray:
 
 
 def kernel_scope_error(cfg: SampleRNNConfig) -> str | None:
-    """Why the decode kernels cannot run ``cfg``, or None if they can."""
+    """Why the decode kernels cannot run ``cfg``, or None if they can: they
+    take GRU and LSTM tiers of any n_rnn, tier count and f1."""
     if cfg.rnn_type not in ("gru", "lstm"):
         return f"the decode kernels take GRU or LSTM tiers, not " \
                f"{cfg.rnn_type}"
-    if cfg.n_rnn != 1:
-        return "the decode kernels take n_rnn=1; n_rnn stacks come with " \
-               "ROADMAP.md B4"
-    if cfg.n_tiers not in (2, 3):
-        return f"the decode kernels take 2 or 3 tiers, not {cfg.n_tiers}; " \
-               "other tier counts come with ROADMAP.md B4"
-    if cfg.frame_sizes[0] < 2:
-        return "the decode kernels need frame_sizes[0] >= 2; f1=1 comes " \
-               "with ROADMAP.md B4"
     return None
 
 
@@ -255,7 +249,7 @@ def prepare_weights(params, cfg: SampleRNNConfig, device=None) -> dict:
     model and pass the result to every request as ``kernel_weights``."""
     why = kernel_scope_error(cfg)
     if why:
-        raise NotImplementedError(why)
+        raise ValueError(why)
     params = tree_map(lambda t: t.to(resolve_device(device)), params)
     return megagen.prepare(params["tiers"], params["mlp"], cfg.compute_dtype)
 
@@ -316,7 +310,7 @@ def _route(use_kernels, device, cfg):
         raise ValueError(f"use_kernels={use_kernels!r}")
     why = kernel_scope_error(cfg)
     if why:
-        raise NotImplementedError(why)
+        raise ValueError(why)
     return "kernels"
 
 
@@ -466,11 +460,15 @@ def prime(params, cfg: SampleRNNConfig, levels, cond=None, speakers=None,
 
 
 def decode_waveform(levels, cfg: SampleRNNConfig) -> torch.Tensor:
-    """Quantized levels -> float waveform in [-1, 1] with the model's
-    codec."""
+    """Quantized levels [..., T] -> float waveform in [-1, 1] with the
+    model's codec: mu-law through K7 (``ops/kernels/codec.py``; its plain
+    version on CPU tensors), linear in plain PyTorch (the reference has no
+    kernel for it)."""
     if cfg.codec == "linear":
         return linear_dequantize(levels, cfg.q_levels)
-    return mu_law_decode(levels, cfg.q_levels)
+    levels = torch.as_tensor(levels)
+    flat = levels.to(torch.int32).reshape(-1, levels.shape[-1])
+    return kcodec.mu_law_decode(flat, cfg.q_levels).reshape(levels.shape)
 
 
 def generate(params, cfg: SampleRNNConfig, n_seqs: int, length: int,

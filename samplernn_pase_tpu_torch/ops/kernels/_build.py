@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("frame_decode", "gemm_bias", "gru_gates", "gru_sequence",
-           "lstm_gates", "lstm_sequence")
+SOURCES = ("codec", "frame_decode", "gemm_bias", "gru_gates",
+           "gru_sequence", "lstm_gates", "lstm_sequence", "roofline")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -98,3 +98,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library with its argument types
+    set; it returns the CUDA error code of its launch (0: launched)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

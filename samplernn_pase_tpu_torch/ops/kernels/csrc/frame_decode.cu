@@ -50,51 +50,13 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
 constexpr int CL = 8;         // blocks per cluster, each owning 1/CL of the columns
 constexpr int LT = 8;         // lanes per cluster
 constexpr int THREADS = 256;  // >= 32 * LT: one warp per lane for argmax
-
-__device__ __forceinline__ uint32_t mulhilo(uint32_t a, uint32_t b,
-                                            uint32_t* hi) {
-  const uint64_t p = static_cast<uint64_t>(a) * b;
-  *hi = static_cast<uint32_t>(p >> 32);
-  return static_cast<uint32_t>(p);
-}
-
-__device__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    uint32_t hi0, hi1;
-    const uint32_t lo0 = mulhilo(0xD2511F53u, c.x, &hi0);
-    const uint32_t lo1 = mulhilo(0xCD9E8D57u, c.z, &hi1);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// Gumbel noise of `level` at `pos`: counter word 3 is the lane index in
-// mode 2 and 0 in mode 3 (the lane's own key).
-__device__ float philox_gumbel(uint2 key, uint32_t word3, int64_t pos,
-                               int level) {
-  const uint4 ctr = make_uint4(static_cast<uint32_t>(level >> 2),
-                               static_cast<uint32_t>(pos),
-                               static_cast<uint32_t>(static_cast<uint64_t>(pos) >> 32),
-                               word3);
-  const uint4 o = philox4x32_10(ctr, key);
-  const int w = level & 3;
-  const uint32_t bits = w == 0 ? o.x : w == 1 ? o.y : w == 2 ? o.z : o.w;
-  const float u = fminf(
-      static_cast<float>(bits & 0x7FFFFFu) * (1.f / 8388608.f) + 1e-7f,
-      1.f - 1.f / 16777216.f);
-  return -logf(-logf(u));
-}
 
 // 16-byte weight vectors: 4 float32 or 8 bf16 columns per load.
 template <typename WT>
@@ -306,12 +268,14 @@ frame_decode_kernel(
         } else {
           const int64_t p = pos0 + i + (lane_pos ? lane_pos[lane] : 0);
           g = noise_mode == 3
-                  ? philox_gumbel(make_uint2(lane_keys[2 * lane],
-                                             lane_keys[2 * lane + 1]),
-                                  0u, p, n)
-                  : philox_gumbel(make_uint2(static_cast<uint32_t>(seed),
-                                             static_cast<uint32_t>(seed >> 32)),
-                                  static_cast<uint32_t>(lane), p, n);
+                  ? srnn::philox_gumbel(
+                        make_uint2(lane_keys[2 * lane],
+                                   lane_keys[2 * lane + 1]),
+                        0u, p, n)
+                  : srnn::philox_gumbel(
+                        make_uint2(static_cast<uint32_t>(seed),
+                                   static_cast<uint32_t>(seed >> 32)),
+                        static_cast<uint32_t>(lane), p, n);
         }
         slice[e] = slice[e] + temperature * g;
       }

@@ -26,9 +26,14 @@ before running a plain version on the card.
 ``fused_frame_decode`` and ``fused_tier_frame_decode`` are the
 counterparts of the Pallas kernels of the same names: the first is K1;
 the second is K2 (tier input + ``upper``), K2 twice (the gates), K3 (GRU)
-or K6 (LSTM), K2 (the upsample) and K1.  A tier's state is a tuple of
-float32 [B, H] tensors: ``(h,)`` for a GRU, ``(h, c)`` for an LSTM.
-Conditioned decode passes each tier a ``CondRows`` (its projected
+or K6 (LSTM), K2 (the upsample) and K1.  A tier of ``n_rnn`` stacked
+layers (the megakernel's static cell stack, ``megagen.py:224-240``) runs
+the gate products and the cell once per layer, layer i feeding layer
+i+1, and upsamples the last layer's ``h``.  A tier's decode state is a
+tuple with one entry per layer, each a tuple of float32 [B, H] tensors:
+``(h,)`` for a GRU, ``(h, c)`` for an LSTM; ``decode_state`` and
+``model_state`` convert it from and to the model layout [n_rnn, (2,) B,
+H].  Conditioned decode passes each tier a ``CondRows`` (its projected
 conditioning rows, each lane's phase and the cond rate), which K2's
 epilogue adds to the tier input.
 """
@@ -84,16 +89,8 @@ def plain_numerics():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def _fn(name):
-    symbol, argtypes = _SIGNATURES[name]
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name, *args, mode=None):
-    err = _fn(name)(*args)
+    err = _build.function(name, *_SIGNATURES[name])(*args)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -432,23 +429,22 @@ PLAIN = Ops(gemm_bias_plain, gru_gates_plain, lstm_gates_plain,
 
 def prepare_tier(tier, dtype) -> dict:
     """A GRU or LSTM tier's weights in kernel form: weight-norm resolved,
-    matrices in ``dtype`` and contiguous (``w_ih``/``w_hh`` [H, 3H] or
-    [H, 4H]; ``w_cond`` [cond_dim, H] where the tier has one), biases
-    float32 (``b_up`` also flat)."""
+    matrices in ``dtype`` and contiguous, biases float32 (``b_up`` also
+    flat).  ``layers`` holds one entry per stacked layer (``w_ih``/``w_hh``
+    [H, 3H] or [H, 4H], ``b_ih``/``b_hh``) beside the tier's ``w_in``,
+    ``w_up`` and, where the tier has one, ``w_cond`` [cond_dim, H]."""
     dt = torch_dtype(dtype)
-    if len(tier["rnn"]) != 1:
-        raise NotImplementedError(
-            "decode kernels take n_rnn=1 tiers; n_rnn stacks come with "
-            "ROADMAP.md B4")
-    rnn = tier["rnn"][0]
     f32 = torch.float32
-    return {
-        "w_in": wnorm.resolve(tier["w_in"]).to(dt).contiguous(),
-        "b_in": tier["b_in"].to(f32).contiguous(),
+    layers = tuple({
         "w_ih": rnn["w_ih"].to(dt).contiguous(),
         "b_ih": rnn["b_ih"].to(f32).contiguous(),
         "w_hh": rnn["w_hh"].to(dt).contiguous(),
         "b_hh": rnn["b_hh"].to(f32).contiguous(),
+    } for rnn in tier["rnn"])
+    return {
+        "w_in": wnorm.resolve(tier["w_in"]).to(dt).contiguous(),
+        "b_in": tier["b_in"].to(f32).contiguous(),
+        "layers": layers,
         "w_up": wnorm.resolve(tier["w_up"]).to(dt).contiguous(),
         "b_up": tier["b_up"].to(f32).contiguous(),
         "b_up_flat": tier["b_up"].to(f32).reshape(-1).contiguous(),
@@ -488,47 +484,59 @@ def tier_gates(w_hh) -> int:
     return n // hdim
 
 
-def decode_state(s, w_hh):
-    """A tier's model-layout state -> its decode state, float32: [1, B, H]
-    -> ``(h,)`` for a GRU tier, [1, 2, B, H] -> ``(h, c)`` for an LSTM
-    tier (told apart by w_hh).  Any other layout raises ValueError."""
+def decode_state(s, layers):
+    """A tier's model-layout state -> its decode state, float32: [n_rnn, B,
+    H] -> ``((h,), ...)`` for a GRU tier, [n_rnn, 2, B, H] -> ``((h, c),
+    ...)`` for an LSTM tier, one entry per layer of ``layers`` (the
+    tier's prepared ``layers``; GRU and LSTM told apart by ``w_hh``).  Any
+    other layout raises ValueError."""
+    w_hh = layers[0]["w_hh"]
     hdim = w_hh.shape[0]
-    lead = (1,) if tier_gates(w_hh) == 3 else (1, 2)
+    n = len(layers)
+    lead = (n,) if tier_gates(w_hh) == 3 else (n, 2)
     if tuple(s.shape[:-2]) != lead or s.shape[-1] != hdim:
         kind = "GRU" if len(lead) == 1 else "LSTM"
-        raise ValueError(f"the {kind} tier with w_hh {tuple(w_hh.shape)} "
-                         f"takes a state {list(lead) + ['B', hdim]}, got "
-                         f"{tuple(s.shape)}")
-    return tuple(s.to(torch.float32).reshape(-1, *s.shape[-2:]))
+        raise ValueError(f"the {kind} tier of {n} layers with w_hh "
+                         f"{tuple(w_hh.shape)} takes a state "
+                         f"{list(lead) + ['B', hdim]}, got {tuple(s.shape)}")
+    s = s.to(torch.float32)
+    return tuple(tuple(layer.reshape(-1, *s.shape[-2:])) for layer in s)
 
 
 def model_state(state):
-    """A decode state -> the model layout: ``(h,)`` -> [1, B, H], ``(h, c)``
-    -> [1, 2, B, H]."""
-    s = torch.stack(state)
-    return s if len(state) == 1 else s[None]
+    """A decode state -> the model layout: ``((h,), ...)`` -> [n_rnn, B, H],
+    ``((h, c), ...)`` -> [n_rnn, 2, B, H]."""
+    return torch.stack([layer[0] if len(layer) == 1 else torch.stack(layer)
+                        for layer in state])
 
 
 def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS,
               cond: CondRows | None = None, pos: int = 0):
     """One tier step in kernels: K2 (levels -> dequantized frame @ w_in +
-    b_in + upper, + the lane's conditioning row), K2 (the input gates
-    ``xg``), then for a GRU K2 (``hg``) and K3, for an LSTM K2 with ``xg``
+    b_in + upper, + the lane's conditioning row), then per stacked layer
+    K2 (the input gates ``xg`` of the tier input or of the layer below's
+    new ``h``) and for a GRU K2 (``hg``) and K3, for an LSTM K2 with ``xg``
     as its ``add`` (``(h @ w_hh + b_hh) + xg``, the reference's ``xg +
     hg`` in one buffer) and K6.  frame [B, span] int32 levels; upper
-    [B, H] float32 or None; state ``(h,)`` (GRU) or ``(h, c)`` (LSTM), from
-    ``decode_state``; cond: this tier's ``CondRows`` or None, read at
-    ``pos``, the frame's first-sample offset within the call -> the new
-    state, same form."""
+    [B, H] float32 or None; state: one ``(h,)`` (GRU) or ``(h, c)`` (LSTM)
+    per layer, from ``decode_state``; cond: this tier's ``CondRows`` or
+    None, read at ``pos``, the frame's first-sample offset within the
+    call -> the new state, same form."""
     kw = {} if cond is None else dict(ext=cond.ext, cphase=cond.phase,
                                       pos=pos, cond_rate=cond.rate)
     x = ops.gemm(frame, tw["w_in"], tw["b_in"], upper, levels_q=q_levels,
                  **kw)
-    xg = ops.gemm(x, tw["w_ih"], tw["b_ih"])
-    h = state[0]
-    if len(state) == 1:
-        return (ops.gru_gates(xg, ops.gemm(h, tw["w_hh"], tw["b_hh"]), h),)
-    return ops.lstm_gates(ops.gemm(h, tw["w_hh"], tw["b_hh"], xg), state[1])
+    new = []
+    for lw, s in zip(tw["layers"], state, strict=True):
+        xg = ops.gemm(x, lw["w_ih"], lw["b_ih"])
+        h = s[0]
+        if len(s) == 1:
+            s = (ops.gru_gates(xg, ops.gemm(h, lw["w_hh"], lw["b_hh"]), h),)
+        else:
+            s = ops.lstm_gates(ops.gemm(h, lw["w_hh"], lw["b_hh"], xg), s[1])
+        new.append(s)
+        x = s[0]
+    return tuple(new)
 
 
 def tier_frame(tw, mw, window, upper, state, temperature, q_levels,
@@ -536,12 +544,12 @@ def tier_frame(tw, mw, window, upper, state, temperature, q_levels,
                cond: CondRows | None = None, pos: int = 0, lane_keys=None,
                lane_pos=None):
     """The bottom tier's whole frame on prepared weights: the tier cell
-    (with ``cond`` read at ``pos``), the upsample ``h' @ w_up`` (K2,
-    ``b_up`` added per row in K1) and the f1 MLP steps (K1, noise as
-    ``frame_decode`` takes it).  Returns (samples [B, f1], the new
-    state)."""
+    (with ``cond`` read at ``pos``), the upsample of the last layer's
+    ``h' @ w_up`` (K2, ``b_up`` added per row in K1) and the f1 MLP steps
+    (K1, noise as ``frame_decode`` takes it).  Returns (samples [B, f1],
+    the new state)."""
     state = tier_cell(tw, window, upper, state, q_levels, ops, cond, pos)
-    rows = ops.gemm(state[0], tw["w_up"])
+    rows = ops.gemm(state[-1][0], tw["w_up"])
     samples = ops.frame(window, rows, tw["b_up"], mw, temperature, noise,
                         seed, pos0, out, lane_keys, lane_pos)
     return samples, state
@@ -572,9 +580,10 @@ def fused_tier_frame_decode(window, upper_cond, h_prev, temperature,
                             noise=None, seed: int = 0, pos0: int = 0,
                             cond: CondRows | None = None, pos: int = 0,
                             lane_keys=None, lane_pos=None):
-    """Counterpart of ``ops/pallas/decode.py:fused_tier_frame_decode``
-    (n_rnn=1): the bottom tier's GRU or LSTM step, its upsample and the f1
-    MLP steps.
+    """Counterpart of ``ops/pallas/decode.py:fused_tier_frame_decode``,
+    in its scope: a tier of one layer (``n_rnn=1``; stacked tiers decode
+    through ``tier_frame``): the bottom tier's GRU or LSTM step, its
+    upsample and the f1 MLP steps.
 
     window [B, f1] int32; upper_cond [B, H] float32; h_prev [1, B, H]
     (GRU) or [2, B, H] (LSTM: h, c) float32.  The reference adds the
@@ -583,20 +592,23 @@ def fused_tier_frame_decode(window, upper_cond, h_prev, temperature,
     and ``lane_keys``/``lane_pos`` take the place of its per-lane noise
     block (``frame_decode``).  Returns (samples [B, f1] int32, h_new in
     h_prev's layout, float32)."""
-    w_hh = tier_params["rnn"][0]["w_hh"]
-    gates = tier_gates(w_hh)
+    if len(tier_params["rnn"]) != 1:
+        raise ValueError(f"fused_tier_frame_decode takes a tier of one "
+                         f"layer (n_rnn=1), got {len(tier_params['rnn'])}")
+    gates = tier_gates(tier_params["rnn"][0]["w_hh"])
     if gates != {"gru": 3, "lstm": 4}[rnn_type]:
         raise ValueError(f"rnn_type={rnn_type!r} but the tier has {gates} "
                          "gates")
-    # the reference's h_prev is the model layout without its n_rnn axis
-    # for an LSTM ([2, B, H]), and the model layout itself for a GRU
-    state = decode_state(h_prev[None] if gates == 4 else h_prev, w_hh)
     f1 = window.shape[1]
     dt = torch_dtype(weights_dtype)
     tw = prepare_tier(tier_params, dt)
     mw = prepare_mlp(mlp_params, dt, f1)
+    # the reference's h_prev is the model layout without its n_rnn axis
+    # for an LSTM ([2, B, H]), and the model layout itself for a GRU
+    state = decode_state(h_prev[None] if gates == 4 else h_prev,
+                         tw["layers"])
     samples, state = tier_frame(
         tw, mw, window.to(torch.int32), upper_cond.to(torch.float32), state,
         temperature, q_levels, KERNELS, noise, seed, pos0, None, cond, pos,
         lane_keys, lane_pos)
-    return samples, torch.stack(state)
+    return samples, torch.stack(state[0])

@@ -1,9 +1,12 @@
 """Whole generation on the decode kernels: the counterpart of
 ``samplernn_pase_tpu/ops/pallas/megagen.py:generate_full_pallas`` for GRU
-and LSTM tiers with n_rnn=1, 2 or 3 tiers, greedy or sampled, with or
-without conditioning (its resident and ``stream_top`` forms compute the
-same samples; here every weight is read from L2 or device memory at each
-use).
+and LSTM tiers of any ``n_rnn``, greedy or sampled, with or without
+conditioning (its resident and ``stream_top`` forms compute the same
+samples; here every weight is read from L2 or device memory at each use).
+The loop (``run``) takes any number of tiers and f1 >= 1, so it is also
+the counterpart of the reference's per-frame route (``_xla_generate``
+over ``fused_tier_frame_decode`` or the tier step and
+``fused_frame_decode``); ``generate_full`` keeps the megakernel's scope.
 
 The TPU megakernel keeps every weight (~55 MB in bf16) resident in one
 core's 128 MiB of VMEM for one launch.  The flagship's bf16 weights are
@@ -13,21 +16,23 @@ over; a single persistent kernel is later work.  Here the loop over top
 frames runs on the host and launches the kernels of ``decode.py``:
 
 * per tier-k step (k > 0): K2 (tier input + upper, + the lane's
-  conditioning row), K2 x2 (gates), K3 (GRU) or K6 (LSTM), K2 (upsample,
-  bias added);
+  conditioning row), then per stacked layer K2 x2 (gates) and K3 (GRU) or
+  K6 (LSTM), then K2 (upsample of the last layer's h, bias added);
 * per bottom frame: ``decode.tier_frame``, the counterpart of
   ``fused_tier_frame_decode``: the same cell, K2 (upsample rows, ``b_up``
   added per row by K1), then K1 for the f1 samples.
 
-A flagship top frame (2-tier GRU, frame_sizes (16, 4)) takes 29 launches;
-config 2's (3-tier LSTM, (16, 4, 4)) 121: 5 for tier 2, 4 x 5 for tier 1
-and 16 x 6 for the bottom frames.  Conditioning adds no launch: the
-megakernel's two-row select (``tier_in``, ``megagen.py:196-220``) is K2's
-epilogue on the tier input, fed the rows the caller projected once per
-call (``ext_proj``).  Its per-lane host noise (``gumbel`` under the
-reference's ``lane_keys``, ``megagen.py:139-166``) is K1's noise mode 3:
-each lane draws with its own key at its own positions (``lane_keys``,
-``pos0`` a [B] tensor).
+A tier step takes 2 + 3 * n_rnn launches and a bottom frame one more.  A
+flagship top frame (2-tier GRU, frame_sizes (16, 4)) takes 29 launches at
+n_rnn=1 and 44 at n_rnn=2 (8 for the top tier, 4 x 9 for the bottom
+frames); config 2's (3-tier LSTM, (16, 4, 4)) 121 at n_rnn=1 (5 for tier
+2, 4 x 5 for tier 1 and 16 x 6 for the bottom frames) and 184 at n_rnn=2.
+Conditioning adds no launch: the megakernel's two-row select
+(``tier_in``, ``megagen.py:196-220``) is K2's epilogue on the tier input,
+fed the rows the caller projected once per call (``ext_proj``).  Its
+per-lane host noise (``gumbel`` under the reference's ``lane_keys``,
+``megagen.py:139-166``) is K1's noise mode 3: each lane draws with its
+own key at its own positions (``lane_keys``, ``pos0`` a [B] tensor).
 
 Lower tiers recurse as in the megakernel's ``decode``.  The levels go
 into one preallocated int32 buffer ``[B, lookback + n_top*lookback]``
@@ -63,8 +68,9 @@ def run(weights, window, states, temperature, n_top, q_levels,
     """Generate ``n_top`` top frames on prepared weights.
 
     window [B, lookback] int32; states: per-tier model-layout states,
-    [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32.  Returns (levels
-    [B, n_top*lookback] int32, final states, same layout).
+    [n_rnn, B, H] (GRU) or [n_rnn, 2, B, H] (LSTM) float32; any number of
+    tiers.  Returns (levels [B, n_top*lookback] int32, final states, same
+    layout).
     ``pos0`` is the noise position of the first sample, an int or a [B]
     int64 tensor (one per lane); noise is Philox keyed by ``seed``, or by
     each lane's ``lane_keys`` [B, 2]; ``gumbel`` [n_bottom, f1, B, q]
@@ -92,7 +98,7 @@ def run(weights, window, states, temperature, n_top, q_levels,
     buf[:, :lookback] = window
     if len(states) != len(tiers):
         raise ValueError(f"{len(states)} states for {len(tiers)} tiers")
-    h = [decode_state(s, t["w_hh"]) for s, t in zip(states, tiers)]
+    h = [decode_state(s, t["layers"]) for s, t in zip(states, tiers)]
     tier_cond = [None] * len(tiers)
     if cond is not None:
         ext_proj, phase, rate = cond
@@ -118,8 +124,9 @@ def run(weights, window, states, temperature, n_top, q_levels,
             return
         h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
                          tier_cond[k], p)
-        cond = ops.gemm(h[k][0], tiers[k]["w_up"], tiers[k]["b_up_flat"])
-        hdim = h[k][0].shape[1]
+        top = h[k][-1][0]          # the last layer's h
+        cond = ops.gemm(top, tiers[k]["w_up"], tiers[k]["b_up_flat"])
+        hdim = top.shape[1]
         for j in range(frame_sizes[k]):
             decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
                    p + j * spans[k - 1])
@@ -130,19 +137,28 @@ def run(weights, window, states, temperature, n_top, q_levels,
 
 
 def _check_scope(tiers, rnn_type):
+    """The reference megakernel's scope (``generate._full_kernel_eligible``):
+    GRU or LSTM tiers of any n_rnn, 2 or 3 tiers, f1 >= 2 (its pipelined
+    window split needs two slots).  ``run`` decodes the rest, as the
+    reference's per-frame route does."""
     gates = {"gru": 3, "lstm": 4}.get(rnn_type)
     if gates is None:
         raise NotImplementedError(f"generate_full takes GRU or LSTM tiers, "
                                   f"not {rnn_type!r}")
     for t in tiers:
-        w = t["rnn"][0]["w_hh"]
-        if tier_gates(w) != gates:
-            raise ValueError(f"rnn_type={rnn_type!r} but a tier's w_hh is "
-                             f"{tuple(w.shape)}")
+        for layer in t["rnn"]:
+            w = layer["w_hh"]
+            if tier_gates(w) != gates:
+                raise ValueError(f"rnn_type={rnn_type!r} but a tier's w_hh "
+                                 f"is {tuple(w.shape)}")
     if len(tiers) not in (2, 3):
-        raise NotImplementedError(
-            f"generate_full takes 2 or 3 tiers, got {len(tiers)}; other "
-            "tier counts come with ROADMAP.md B4")
+        raise ValueError(
+            f"generate_full takes 2 or 3 tiers, as the megakernel, got "
+            f"{len(tiers)}; generate.generate_levels decodes any count")
+    if tiers[0]["b_up"].shape[0] < 2:
+        raise ValueError(
+            "generate_full needs frame_sizes[0] >= 2, as the megakernel; "
+            "generate.generate_levels decodes f1=1")
 
 
 def generate_full(window, states, temperature, tiers, mlp, *, n_top: int,
@@ -150,10 +166,12 @@ def generate_full(window, states, temperature, tiers, mlp, *, n_top: int,
                   weights_dtype="bfloat16", seed: int = 0, pos0=0,
                   gumbel=None, cond_rate: int = 0, ext_proj=None,
                   cond_phase=None, lane_keys=None, ops: Ops = KERNELS):
-    """Counterpart of ``generate_full_pallas`` (n_rnn=1).
+    """Counterpart of ``generate_full_pallas``, in the scope of the
+    megakernel route (``_check_scope``).
 
     window [B, lookback] int32 seed context; states: tuple of per-tier
-    model-layout states, [1, B, H] (GRU) or [1, 2, B, H] (LSTM) float32;
+    model-layout states, [n_rnn, B, H] (GRU) or [n_rnn, 2, B, H] (LSTM)
+    float32;
     tiers: tier params bottom -> top; temperature 0 = greedy.  Sampling
     draws Philox noise from ``seed``, or from each lane's ``lane_keys``
     [B, 2], at positions ``pos0 ..`` (an int, or a [B] tensor of per-lane

@@ -89,11 +89,7 @@ def reset_launches():
 
 
 def _fn(name):
-    library, symbol, argtypes = _SIGNATURES[name]
-    fn = getattr(_build.load(library), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(*_SIGNATURES[name])
 
 
 @functools.lru_cache(maxsize=None)

@@ -136,8 +136,9 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     x = tdec.gemm_bias(win, tw["w_in"], tw["b_in"], h, levels_q=Q)
     torch.testing.assert_close(
         x, tdec.gemm_bias_plain(win, tw["w_in"], tw["b_in"], h, Q))
-    xg = tdec.gemm_bias(x, tw["w_ih"], tw["b_ih"])
-    hg = tdec.gemm_bias(h, tw["w_hh"], tw["b_hh"])
+    lw = tw["layers"][0]
+    xg = tdec.gemm_bias(x, lw["w_ih"], lw["b_ih"])
+    hg = tdec.gemm_bias(h, lw["w_hh"], lw["b_hh"])
     torch.testing.assert_close(tdec.gru_gates(xg, hg, h),
                                tdec.gru_gates_plain(xg, hg, h))
     g4 = torch.cat([xg, hg[:, :H]], dim=1)

@@ -138,16 +138,17 @@ def test_generate_levels_greedy_matches_reference(frame_sizes, route):
 
 @pytest.mark.parametrize("rnn_type,n_rnn", [("lstm", 2), ("gru", 2)])
 def test_plain_route_runs_models_outside_kernel_scope(rnn_type, n_rnn):
+    """Stacked tiers, once outside the kernel route's scope: every route
+    now equals the reference."""
     jc, tc, jp, tp = _model((4, 2), seed=4, rnn_type=rnn_type, n_rnn=n_rnn)
     t = jc.lookback * 2
     want = np.asarray(jgen.generate_levels(jp, jc, B, t, None,
                                            use_pallas=False))
-    got = tgen.generate_levels(tp, tc, B, t, None, device="cpu").numpy()
-    np.testing.assert_array_equal(got, want)
-    for route in (True, "frame"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
-            tgen.generate_levels(tp, tc, B, t, None, use_kernels=route,
-                                 device="cpu")
+    assert tgen.kernel_scope_error(tc) is None
+    for route in (None, True, "frame"):
+        got = tgen.generate_levels(tp, tc, B, t, None, use_kernels=route,
+                                   device="cpu").numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("route", [True, "frame", False])
@@ -268,11 +269,12 @@ def test_decode_state_layout_follows_the_tier(rnn_type, wrong):
     unchanged, and a state that does not fit the tier's gate count raises
     ValueError before any kernel runs."""
     _, _, _, tp = _model((4, 2), seed=13, rnn_type=rnn_type)
-    w_hh = tp["tiers"][0]["rnn"][0]["w_hh"]
+    layers = tdec.prepare_tier(tp["tiers"][0], torch.float32)["layers"]
     shape = (1, B, 16) if rnn_type == "gru" else (1, 2, B, 16)
     s = torch.randn(shape, generator=torch.Generator().manual_seed(0))
-    state = tdec.decode_state(s, w_hh)
-    assert len(state) == (1 if rnn_type == "gru" else 2)
+    state = tdec.decode_state(s, layers)
+    assert len(state) == 1
+    assert len(state[0]) == (1 if rnn_type == "gru" else 2)
     torch.testing.assert_close(tdec.model_state(state), s, rtol=0, atol=0)
     with pytest.raises(ValueError, match="takes a state"):
         tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
@@ -307,11 +309,24 @@ def test_entry_points_and_scope():
                                            device="cpu")
     assert empty.shape == (B, 0) and hist.shape == (B, tc.lookback)
     assert tgen.next_pow2(5) == 8 and tgen.next_pow2(0) == 1
+    # stacked tiers run; the megakernel's scope (2 or 3 tiers, f1 >= 2)
+    # stays generate_full's, the other configurations decode through
+    # generate_levels
     _, _, _, stacked = _model((4, 2), seed=7, n_rnn=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
-        tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
-                            (torch.zeros(2, B, 16),) * 2, 0.0,
-                            stacked["tiers"], stacked["mlp"], n_top=1)
+    lv, st = tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
+                                 (torch.zeros(2, B, 16),) * 2, 0.0,
+                                 stacked["tiers"], stacked["mlp"], n_top=1,
+                                 weights_dtype="float32")
+    assert lv.shape == (B, 8) and [s.shape for s in st] == [(2, B, 16)] * 2
+    for sizes, why in (((2, 2, 2, 2), "2 or 3 tiers"), ((4,), "2 or 3 tiers"),
+                       ((1, 4), "frame_sizes\\[0\\] >= 2")):
+        _, tc_, _, p_ = _model(sizes, seed=7)
+        assert tgen.kernel_scope_error(tc_) is None
+        with pytest.raises(ValueError, match=why):
+            tmega.generate_full(
+                torch.zeros(B, tc_.lookback, dtype=torch.int32),
+                tuple(torch.zeros(1, B, 16) for _ in sizes), 0.0,
+                p_["tiers"], p_["mlp"], n_top=1)
     with pytest.raises(ValueError, match="rnn_type='lstm'"):
         tmega.generate_full(torch.zeros(B, 8, dtype=torch.int32),
                             (torch.zeros(1, 2, B, 16),) * 2, 0.0,

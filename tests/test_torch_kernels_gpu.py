@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K6 against their plain versions, on the card, the
-training route's behaviour on CUDA tensors, and pool lanes against solo
-streams (batch independence of K1 and K2).
+"""The CUDA kernels K1-K9 against their plain versions, on the card, the
+training route's behaviour on CUDA tensors, pool lanes against solo
+streams (batch independence of K1 and K2), and the stacked, 1- and
+4-tier and f1=1 models through the kernel loop.
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 tests/conftest.py imports JAX; on a GPU host without JAX run them with
@@ -411,3 +412,122 @@ def test_train_step_kernel_route_matches_scan(cuda, rnn_type, frame_sizes):
     assert abs(out[True][3].item() - out[False][3].item()) < 1e-5
     for a, c in zip(out[True][2], out[False][2]):
         torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------- stacked tiers, tier counts --
+
+@pytest.mark.parametrize("rnn_type,frame_sizes", [("gru", (4, 2)),
+                                                  ("lstm", (4, 2, 2))])
+@pytest.mark.parametrize("temp", [0.0, 0.9])
+def test_stacked_generate_full_matches_plain_f32(cuda, rnn_type,
+                                                 frame_sizes, temp):
+    cfg = SampleRNNConfig(frame_sizes=frame_sizes, dim=64, embed_dim=16,
+                          n_rnn=2, rnn_type=rnn_type,
+                          compute_dtype="float32")
+    params = samplernn.init_params(torch.Generator().manual_seed(1), cfg,
+                                   cuda)
+    b = 4
+    window = torch.full((b, cfg.lookback), 128, dtype=torch.int32,
+                        device=cuda)
+    states = samplernn.initial_state(params, cfg, b)
+    kw = dict(n_top=3, rnn_type=rnn_type, weights_dtype="float32", seed=5)
+    kdec.reset_launches()
+    got, gs = megagen.generate_full(window, states, temp, params["tiers"],
+                                    params["mlp"], **kw)
+    per_layer = 1 if rnn_type == "gru" else 0
+    steps = 3 * sum(cfg.lookback // s for s in cfg.tier_spans)
+    assert kdec.LAUNCHES["gru_gates"] == 2 * steps * per_layer
+    want, ws = megagen.generate_full_plain(window, states, temp,
+                                           params["tiers"], params["mlp"],
+                                           **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, c in zip(gs, ws):
+        assert a.shape == states[0].shape
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("frame_sizes", [(1, 8), (8,), (2, 2, 2, 2)])
+@pytest.mark.parametrize("temp", [None, 0.9])
+def test_other_tier_counts_and_f1_one_match_plain_f32(cuda, frame_sizes,
+                                                      temp):
+    """f1 = 1 (K1 with a one-slot window), a 1-tier and a 4-tier model:
+    generate_levels' kernel route on the card against the same loop on
+    the plain versions, and K1 launched once per bottom frame."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    cfg = SampleRNNConfig(frame_sizes=frame_sizes, dim=64, embed_dim=16,
+                          n_rnn=2, compute_dtype="float32")
+    params = samplernn.init_params(torch.Generator().manual_seed(2), cfg,
+                                   cuda)
+    b, n = 6, cfg.lookback * max(2, 32 // cfg.lookback)
+    kdec.reset_launches()
+    got, st, _ = tgen.generate_levels(params, cfg, b, n, temp, seed=4,
+                                      return_state=True, device=cuda)
+    assert kdec.LAUNCHES["frame_decode"] == n // frame_sizes[0]
+    weights = megagen.prepare(params["tiers"], params["mlp"], torch.float32,
+                              kdec.PLAIN)
+    want, ws = megagen.run(
+        weights, torch.full((b, cfg.lookback), 128, dtype=torch.int32,
+                            device=cuda),
+        samplernn.initial_state(params, cfg, b), temp or 0.0,
+        n // cfg.lookback, 256, kdec.PLAIN, seed=4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, c in zip(st, ws):
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------- K7 codec --
+
+def test_codec_matches_plain_bit_exact(cuda):
+    from samplernn_pase_tpu_torch.ops.kernels import codec
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.rand(64, 1000, generator=gen) * 2.4 - 1.2).to(cuda)
+    codec.reset_launches()
+    for q in (256, 1024):
+        torch.testing.assert_close(codec.mu_law_encode(x, q),
+                                   codec.mu_law_encode_plain(x, q),
+                                   rtol=0, atol=0)
+        lv = torch.arange(q, dtype=torch.int32, device=cuda).view(4, -1)
+        torch.testing.assert_close(codec.mu_law_decode(lv, q),
+                                   codec.mu_law_decode_plain(lv, q),
+                                   rtol=0, atol=0)
+    # rows strided, as a view of the generation buffer
+    buf = torch.randint(0, 256, (5, 300), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    torch.testing.assert_close(codec.mu_law_decode(buf[:, 44:]),
+                               codec.mu_law_decode_plain(buf[:, 44:]),
+                               rtol=0, atol=0)
+    assert codec.LAUNCHES == {"codec_encode": 2, "codec_decode": 3}
+
+
+# ---------------------------------------------- K8, K9 roofline kernels --
+
+def test_vpu_tail_matches_plain(cuda):
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+    x = vc.inputs(cuda)
+    for use_prng in (False, True):
+        got, ring = vc.vpu_tail(x["logits"], x["gum"], 3, n_frames=3,
+                                use_prng=use_prng, return_ring=True)
+        want, wring = vc.vpu_tail_plain(x["logits"], x["gum"], 3,
+                                        n_frames=3, use_prng=use_prng)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(ring, wring, rtol=0, atol=0)
+
+
+def test_mxu_stream_matches_plain(cuda):
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+    gen = torch.Generator().manual_seed(8)
+    b, h, q, f1 = 64, 128, 64, 4
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    args = (rnd(b, f1 * q), rnd((f1 - 1) * q, h, scale=0.05),
+            rnd(q, h, scale=0.05), rnd(h, h, scale=0.05),
+            rnd(h, q, scale=0.05), rnd(h, f1 * h, scale=0.05))
+    got = vc.mxu_stream(*args, n_frames=2)
+    want = vc.mxu_stream_plain(*args, n_frames=2)
+    # float32 sums in another order: a bf16 rounding of the hidden
+    # activations may land on the other side, and every (identical) step
+    # repeats it
+    err = (got - want).abs().max().item()
+    assert err <= 2 ** -7 * want.abs().max().item(), err
