@@ -11,7 +11,10 @@ Phases (any failure ends the run with a non-zero exit):
 2. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes in bf16 and at a small float32 shape (K2 at every
    distinct product of both decode paths, the flagship's and config 2's,
-   its entry in the kernels line weighted by each product's launches),
+   its entry in the kernels line weighted by each product's launches,
+   each product's split plan printed beside its time; rows of M=1 and
+   M=5 calls bit-equal to the same rows of the full-batch call; K2's
+   epilogue terms timed one at a time by scripts/gemm_ablation.py),
    and timed beside its plain version, its bound and one library call
    computing the same function (K2: torch.addmm; K3:
    aten._thnn_fused_gru_cell; K4/K5: cuDNN's GRU/LSTM through
@@ -24,7 +27,9 @@ Phases (any failure ends the run with a non-zero exit):
    make_generator(use_kernels="frame"), which must equal the sampled one.
    Every decode kernel of the path must launch, levels must lie in
    [0, 256), and rescoring the emitted history through the plain
-   per-step modules must agree on >= 0.99 of the samples;
+   per-step modules must agree on >= 0.99 of the samples; then one
+   sampled request at bench.py's 16,384 samples (B=128, T=0.95, exact
+   launch counts), timed in samples/s;
 4. the flagship's TBPTT train step (make_train_step, make_optimizer(1e-3,
    1.0)) at B=128, seq_len 1024 on random levels from a seed, 2 warm
    steps then 5 timed.  Both K4 kernels must launch twice per step (one
@@ -115,6 +120,7 @@ C4_RESCORE = 1024
 C4_ROWS = 512           # cond rows per lane of a config-4 request
 C4_CHUNK = 1024         # pool chunk: 64 ms of 16 kHz audio
 C4_CHUNKS = 8
+BENCH_LENGTH = 16384    # bench.py's request length
 
 
 class SmokeFailure(Exception):
@@ -152,6 +158,14 @@ def kernel_name(mangled: str) -> str:
     return mangled[:60]
 
 
+def kernel_group(key: str, groups) -> str:
+    """The group of a profiled kernel: the first group name in its name
+    (K2's bf16 route runs as the skinny core's kernel), else "other"."""
+    if "skinny_gemm" in key:
+        key = "gemm_bias"
+    return next((g for g in groups if g in key), "other")
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Wall time per call of reps back-to-back calls (CUDA events, warm):
     the device time, or the host's launch time where that is longer."""
@@ -187,20 +201,17 @@ def kernel_times(torch, fn):
 
 def device_ms(torch, fn, reps: int):
     """(device ms, wall ms) per call: the summed device time of the
-    kernels fn() launches (profiler), and cuda_ms's wall time.  When the
-    profiler records no device time three times over, the device time is
-    reported as the wall time (an upper bound) and a note is printed."""
+    kernels fn() launches (gemm_ablation.device_us: torch.profiler, a
+    trace with no device time taken again), and cuda_ms's wall time.  When
+    the profiler records no device time three times over, the device time
+    is reported as the wall time (an upper bound) and a note is printed."""
+    from samplernn_pase_tpu_torch.scripts.gemm_ablation import device_us
     wall = cuda_ms(torch, fn, reps)
-
-    def many():
-        for _ in range(reps):
-            fn()
-    for _ in range(3):
-        dev = sum(t for t, _ in kernel_times(torch, many).values()) / reps
-        if dev > 0:
-            return dev, wall
-    print("  note: torch.profiler recorded no device time; wall time used")
-    return wall, wall
+    try:
+        return device_us(fn, reps) / 1e3, wall
+    except RuntimeError:
+        print("  note: torch.profiler recorded no device time; wall time used")
+        return wall, wall
 
 
 # The sequence kernels: K4 (GRU, the flagship's tiers: N = 64 and 16 at
@@ -659,11 +670,15 @@ def check_gemm(torch, dev, kdec, cases, path: str):
                   + (m * n * 4 + m * 4 if kw else 0))
         bms, by = bound(nbytes, 2.0 * m * n * k,
                         PEAK_BF16 if w.dtype == torch.bfloat16 else PEAK_F32)
+        plan = kdec.gemm_plan(k, n, w.dtype)
+        plan = (f"plan split {plan.split} bn {plan.bn} groups {plan.groups}"
+                f" ({plan.ctas} CTAs per 128 rows)" if plan
+                else "float32 FMA route")
         print(f"K2 {path} {name:16s} [{m},{k}]@[{k},{n}] {w.dtype} err "
               f"{err:.3g} (bound {tol:.3g}) {ms * 1e3:.1f} us (wall per call "
               f"{wall * 1e3:.1f} us), plain {pms * 1e3:.1f} us, addmm "
               f"{lms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}); "
-              f"{runs} launches in the path's run")
+              f"{plan}; {runs} launches in the path's run")
         require(err <= tol, f"gemm_bias {path} {name}: max abs err {err} > "
                 f"{tol}")
         st["err"] = max(st["err"], err)
@@ -675,6 +690,34 @@ def check_gemm(torch, dev, kdec, cases, path: str):
     for key in ("ms", "plain", "lib", "bound"):
         st[key] /= st["launches"]
     return st
+
+
+def check_rows_independent(torch, kdec, cases, path: str):
+    """K2's bf16 products at full width: rows of an M=1 and an M=5 call
+    bit-equal to the same rows of the M=128 call, and two M=128 calls
+    bit-equal (the plan does not depend on M).  Raises SmokeFailure."""
+    n_checked = 0
+    for name, a, w, bias, add, lq, _, *kw in cases:
+        kw = kw[0] if kw else {}
+        if w.dtype != torch.bfloat16:
+            continue
+
+        def call(lo, hi):
+            sub = dict(kw, ext=kw["ext"][:, lo:hi],
+                       cphase=kw["cphase"][lo:hi]) if kw else {}
+            return kdec.gemm_bias(a[lo:hi], w, bias,
+                                  None if add is None else add[lo:hi],
+                                  levels_q=lq, **sub)
+        full = call(0, a.shape[0])
+        require(torch.equal(full, call(0, a.shape[0])),
+                f"gemm_bias {path} {name}: two calls differ")
+        for lo, hi in ((0, 1), (a.shape[0] - 1, a.shape[0]), (7, 12)):
+            require(torch.equal(call(lo, hi), full[lo:hi]),
+                    f"gemm_bias {path} {name}: rows {lo}..{hi - 1} alone "
+                    "differ from the same rows of the whole call")
+        n_checked += 1
+    print(f"K2 {path}: {n_checked} bf16 products, rows of M=1 and M=5 "
+          "calls bit-equal to the whole call's, two calls bit-equal")
 
 
 def ext_row(torch, ext, cphase, pos, cond_rate):
@@ -756,6 +799,7 @@ def c4_kernel_checks(torch, dev, kdec, tgen, cfg, weights, b: int,
                    tiers[0]["w_cond"], None, None, 0, calls * len(tiers))]
     k2c = check_gemm(torch, dev, kdec, cond_cases, "config 4")
     k2p = check_gemm(torch, dev, kdec, proj_cases, "config 4")
+    check_rows_independent(torch, kdec, cond_cases + proj_cases, "config 4")
 
     # K1 noise mode 3: per-lane keys and positions
     mw, t0 = weights["mlp"], tiers[0]
@@ -944,7 +988,7 @@ def c2_generation(torch, dev, exp, params, weights, k2_launches: int, card):
     groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
               "lstm_gates": [0.0, 0], "other": [0.0, 0]}
     for key, (t, cnt) in times.items():
-        g = next((g for g in groups if g in key), "other")
+        g = kernel_group(key, groups)
         groups[g][0] += t
         groups[g][1] += cnt
     busy = sum(t for t, _ in groups.values())
@@ -1117,7 +1161,7 @@ def c4_generation(torch, dev, exp, params, weights, card):
     groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
               "gru_gates": [0.0, 0], "other": [0.0, 0]}
     for key, (t, cnt) in times.items():
-        g = next((g for g in groups if g in key), "other")
+        g = kernel_group(key, groups)
         groups[g][0] += t
         groups[g][1] += cnt
     busy = sum(t for t, _ in groups.values())
@@ -1528,7 +1572,7 @@ def stacked_generation(torch, dev, cfg, params, weights, k2_launches: int,
     groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
               "gru_gates": [0.0, 0], "other": [0.0, 0]}
     for key, (t, cnt) in times.items():
-        g = next((g for g in groups if g in key), "other")
+        g = kernel_group(key, groups)
         groups[g][0] += t
         groups[g][1] += cnt
     busy = sum(t for t, _ in groups.values())
@@ -1738,7 +1782,12 @@ def main() -> int:
                                           "config 2"),
               "stacked_flagship": check_gemm(torch, dev, kdec, cases5,
                                              "stacked")}
-    except SmokeFailure as err:
+        for cs, path in ((cases, "flagship"), (cases2, "config 2")):
+            check_rows_independent(torch, kdec, cs, path)
+        # K2's epilogue terms one at a time, beside addmm
+        from samplernn_pase_tpu_torch.scripts import gemm_ablation
+        ablation = gemm_ablation.run(dev)
+    except (SmokeFailure, RuntimeError) as err:
         return fail(str(err))
 
     # ---- 2b. K3 gru_gates ----
@@ -1934,7 +1983,7 @@ def main() -> int:
     groups = {"frame_decode": [0.0, 0], "gemm_bias": [0.0, 0],
               "gru_gates": [0.0, 0], "other": [0.0, 0]}
     for key, (t, cnt) in times.items():
-        g = next((g for g in groups if g in key), "other")
+        g = kernel_group(key, groups)
         groups[g][0] += t
         groups[g][1] += cnt
     busy = sum(t for t, _ in groups.values())
@@ -1948,6 +1997,25 @@ def main() -> int:
     print(f"whole-generation route, B={b}, {LENGTH} samples: greedy "
           f"{n / t_greedy:,.0f} samples/s ({t_greedy:.3f} s), sampled "
           f"{n / t_sampled:,.0f} samples/s ({t_sampled:.3f} s) on {card}")
+    # bench.py's request: 16,384 samples, B=128, T=0.95
+    kdec.reset_launches()
+    t0 = time.perf_counter()
+    long = tgen.generate_levels(params, cfg, b, BENCH_LENGTH, 0.95, seed=2,
+                                device=dev, kernel_weights=weights)
+    torch.cuda.synchronize()
+    t_long = time.perf_counter() - t0
+    want = decode_launches(cfg, BENCH_LENGTH)
+    if dict(kdec.LAUNCHES) != want:
+        return fail(f"16,384-sample request: launches {dict(kdec.LAUNCHES)},"
+                    f" expected {want}")
+    if (long.shape != (b, BENCH_LENGTH) or long.min().item() < 0
+            or long.max().item() >= q):
+        return fail(f"16,384-sample request: shape {tuple(long.shape)} or "
+                    "levels out of range")
+    print(f"bench.py's request (B={b}, {BENCH_LENGTH} samples, T=0.95): "
+          f"{b * BENCH_LENGTH / t_long:,.0f} samples/s ({t_long:.3f} s, "
+          f"{t_long * 1e3 / (BENCH_LENGTH // cfg.lookback):.3f} ms per top "
+          f"frame) on {card}")
 
     # ---- 4. the training path at full width ----
     t0 = time.perf_counter()
@@ -2032,6 +2100,7 @@ def main() -> int:
          "ms": k2_all["ms"], "plain_ms": k2_all["plain"],
          "bound_ms": k2_all["bound"], "bound_by": max(k2_by, key=k2_by.get),
          "library_ms": k2_all["lib"],
+         "ablation": ablation,
          "by_path": {p: {"launches": k2_runs[p], "ms": st["ms"],
                          "plain_ms": st["plain"], "bound_ms": st["bound"],
                          "library_ms": st["lib"]} for p, st in k2.items()}},

@@ -21,22 +21,26 @@
 //   r = bump ? min(base + 1, R - 1) : base
 // (each lane's rows start at its own origin and its sub-row phase picks
 // one of two rows).  The row index is worked out here, not on the host,
-// so a tier step stays one launch; reading it adds B*N*4 bytes.
+// so a tier step stays one launch; the bf16 route reads both candidate
+// rows (2*B*N*4 bytes) so that the select waits on no dependent load.
 //
-// Bound on the H100: at decode batch 128 the products are small
+// Bound on the H100: at decode batch 128 the products are skinny
 // ([128,1024]@[1024,3072], [128,1024]@[1024,16384]); the weights (up to
-// 32 MB in bf16) are read once per call, so the bytes bound is a few us
-// and the FLOP bound at the tensor-core rate is under 10 us.  bf16 weights
-// take the tensor cores: 64x64 output tiles, four warps of 2x2 WMMA
-// 16x16x16 fragments (mma.sync), BK=64 slices staged through shared
-// memory with the next slice prefetched into registers.  float32 weights
-// (the exact path the tests hold against the reference) take a plain
-// tiled FMA product.  Rows of A, `add` and C take a leading dimension so
-// that strided views of the generation buffer need no copy.
+// 32 MB in bf16) are read once per call, so the bytes bound is 0.2-13 us
+// and the FLOP bound at the tensor-core rate is under 1.5 us.  bf16
+// weights take the split-K wgmma core of skinny_gemm.cuh (K split over a
+// thread-block cluster, W streamed by TMA, A staged by TMA and
+// rounded once per stage, partials summed through distributed shared
+// memory in rank order) with the epilogue below; the plan comes from
+// ops/kernels/decode.py:gemm_plan.  float32 weights (the exact path the
+// tests hold against the reference) take a plain tiled FMA product.  Rows
+// of A, `add` and C take a leading dimension so that strided views of the
+// generation buffer need no copy.
 
-#include <mma.h>
+#include <cmath>
 
 #include "common.cuh"
+#include "skinny_gemm.cuh"
 
 namespace {
 
@@ -135,158 +139,79 @@ gemm_bias_kernel(const void* __restrict__ a_ptr, int64_t lda,
 }
 
 
-// ---- bf16 weights: tensor-core tiles ----
-constexpr int TBM = 64, TBN = 64, TBK = 64, TTHREADS = 128;
-constexpr int LDA = TBK + 8, LDW = TBN + 8, LDC = TBN + 4;  // padded rows
+// ---- bf16 weights: the skinny wgmma core (skinny_gemm.cuh) ----
 
-template <bool LEVELS>
-__device__ __forceinline__ float load_a(const void* a_ptr, int64_t lda,
-                                        int r, int k, int m, int kdim,
-                                        float q_half) {
-  if (r >= m || k >= kdim) return 0.f;
-  if (LEVELS) {
-    const int32_t lv = static_cast<const int32_t*>(a_ptr)[r * lda + k];
-    return static_cast<float>(lv) / q_half - 1.f;
-  }
-  return static_cast<const float*>(a_ptr)[r * lda + k];
-}
+// K2's epilogue on four columns of an output row, after the cluster's
+// split-K sum: ((acc + bias) + add) + the row's conditioning row.  Every
+// input is loaded (16 bytes where `vec`) in `load`, before the core's
+// first store; both candidate conditioning rows are read, so the row
+// select costs no dependent load.
+struct K2Epilogue {
+  const float* bias;
+  const float* add;
+  int64_t ldadd;
+  const float* ext;
+  int64_t ld_row, ld_lane;
+  const int32_t* phase;
+  int base, hi, pmod, rate;   // rows pos / rate and min(that + 1, R - 1)
+  float* c;
+  int64_t ldc;
+  int vec;
 
-// Four consecutive A elements (row r, columns k..k+3) as float32, one
-// 16-byte load where the row allows it.
-template <bool LEVELS>
-__device__ __forceinline__ float4 load_a4(const void* a_ptr, int64_t lda,
-                                          int r, int k, int m, int kdim,
-                                          float q_half, bool vec) {
-  if (vec && r < m && k + 3 < kdim) {
-    if (LEVELS) {
-      const int4 v = *reinterpret_cast<const int4*>(
-          static_cast<const int32_t*>(a_ptr) + r * lda + k);
-      return make_float4(static_cast<float>(v.x) / q_half - 1.f,
-                         static_cast<float>(v.y) / q_half - 1.f,
-                         static_cast<float>(v.z) / q_half - 1.f,
-                         static_cast<float>(v.w) / q_half - 1.f);
-    }
-    return *reinterpret_cast<const float4*>(
-        static_cast<const float*>(a_ptr) + r * lda + k);
-  }
-  return make_float4(load_a<LEVELS>(a_ptr, lda, r, k, m, kdim, q_half),
-                     load_a<LEVELS>(a_ptr, lda, r, k + 1, m, kdim, q_half),
-                     load_a<LEVELS>(a_ptr, lda, r, k + 2, m, kdim, q_half),
-                     load_a<LEVELS>(a_ptr, lda, r, k + 3, m, kdim, q_half));
-}
-
-template <bool LEVELS>
-__global__ void __launch_bounds__(TTHREADS)
-gemm_bias_wmma_kernel(const void* __restrict__ a_ptr, int64_t lda,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ add, int64_t ldadd,
-                      ExtCond ext, float* __restrict__ c, int64_t ldc,
-                      int m, int n, int k, float q_half) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(32) __nv_bfloat16 as[TBM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 ws[TBK * LDW];
-  __shared__ __align__(32) float cs[TBM * LDC];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;        // warp's 32x32 sub-tile
-  const int row0 = blockIdx.y * TBM, col0 = blockIdx.x * TBN;
-  constexpr int A_PER = TBM * TBK / (4 * TTHREADS);   // float4s per thread
-  constexpr int W_PER = TBK * TBN / (8 * TTHREADS);   // 8-bf16 vectors
-  const bool a_vec = lda % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(a_ptr) % 16 == 0;
-  const bool w_vec = n % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  float4 ra[A_PER];
-  uint4 rw[W_PER];
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < A_PER; ++r) {
-      const int f = tid + r * TTHREADS, row = f / (TBK / 4);
-      const int kq = (f % (TBK / 4)) * 4;
-      ra[r] = load_a4<LEVELS>(a_ptr, lda, row0 + row, k0 + kq, m, k, q_half,
-                              a_vec);
-    }
-#pragma unroll
-    for (int r = 0; r < W_PER; ++r) {
-      const int f = tid + r * TTHREADS, kk = f / (TBN / 8);
-      const int gk = k0 + kk, gc = col0 + (f % (TBN / 8)) * 8;
-      if (w_vec && gk < k && gc + 7 < n) {
-        rw[r] = *reinterpret_cast<const uint4*>(
-            w + static_cast<int64_t>(gk) * n + gc);
-      } else {
-        uint32_t bits[8];
-#pragma unroll
-        for (int v = 0; v < 8; ++v)
-          bits[v] = (gk < k && gc + v < n)
-                        ? __bfloat16_as_ushort(
-                              w[static_cast<int64_t>(gk) * n + gc + v])
-                        : 0u;
-        rw[r] = make_uint4(bits[0] | bits[1] << 16, bits[2] | bits[3] << 16,
-                           bits[4] | bits[5] << 16, bits[6] | bits[7] << 16);
-      }
-    }
+  struct In {
+    float4 b, a, e0, e1;
+    int ph;
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  __device__ __forceinline__ In load(int row, int col, int) const {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    In in{z, z, z, z, 0};
+    if (!vec) return in;   // the scalar path loads as it stores
+    if (bias) in.b = *reinterpret_cast<const float4*>(bias + col);
+    if (add) in.a = *reinterpret_cast<const float4*>(add + row * ldadd + col);
+    if (ext) {
+      const float* er = ext + static_cast<int64_t>(row) * ld_lane + col;
+      in.e0 = *reinterpret_cast<const float4*>(er + base * ld_row);
+      in.e1 = *reinterpret_cast<const float4*>(er + hi * ld_row);
+      in.ph = phase[row];
+    }
+    return in;
+  }
 
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += TBK) {
-#pragma unroll
-    for (int r = 0; r < A_PER; ++r) {
-      const int f = tid + r * TTHREADS;
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-          as + (f / (TBK / 4)) * LDA + (f % (TBK / 4)) * 4);
-      dst[0] = __floats2bfloat162_rn(ra[r].x, ra[r].y);
-      dst[1] = __floats2bfloat162_rn(ra[r].z, ra[r].w);
+  __device__ __forceinline__ void store(int row, int col, float4 v,
+                                        const In& in, int n) const {
+    if (vec) {   // n, the row strides and the pointers are 16-byte multiples
+      if (bias)
+        v = make_float4(v.x + in.b.x, v.y + in.b.y, v.z + in.b.z,
+                        v.w + in.b.w);
+      if (add)
+        v = make_float4(v.x + in.a.x, v.y + in.a.y, v.z + in.a.z,
+                        v.w + in.a.w);
+      if (ext) {
+        const float4 e = in.ph + pmod >= rate ? in.e1 : in.e0;
+        v = make_float4(v.x + e.x, v.y + e.y, v.z + e.z, v.w + e.w);
+      }
+      *reinterpret_cast<float4*>(c + row * ldc + col) = v;
+      return;
     }
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    const int r = ext && phase[row] + pmod >= rate ? hi : base;
 #pragma unroll
-    for (int r = 0; r < W_PER; ++r) {
-      const int f = tid + r * TTHREADS;
-      *reinterpret_cast<uint4*>(ws + (f / (TBN / 8)) * LDW +
-                                (f % (TBN / 8)) * 8) = rw[r];
+    for (int u = 0; u < 4; ++u) {
+      const int gc = col + u;
+      if (gc >= n) break;
+      float x = vs[u];
+      if (bias) x = x + bias[gc];
+      if (add) x = x + add[row * ldadd + gc];
+      if (ext) x = x + ext[static_cast<int64_t>(r) * ld_row +
+                           static_cast<int64_t>(row) * ld_lane + gc];
+      c[row * ldc + gc] = x;
     }
-    __syncthreads();
-    if (k0 + TBK < k) fetch(k0 + TBK);   // next slice, in flight meanwhile
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDA + kk,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], ws + kk * LDW + wn * 32 + j * 16, LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < TBM * TBN; e += TTHREADS) {
-    const int gr = row0 + e / TBN, gc = col0 + e % TBN;
-    if (gr >= m || gc >= n) continue;
-    float v = cs[(e / TBN) * LDC + e % TBN];
-    if (bias) v = v + bias[gc];
-    if (add) v = v + add[gr * ldadd + gc];
-    c[gr * ldc + gc] = add_ext(ext, v, gr, gc);
-  }
+};
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename WT>
@@ -313,22 +238,40 @@ extern "C" int srnn_gemm_bias(const void* a, int a_levels, int64_t lda,
                               const float* ext, int64_t ext_ld_row,
                               int64_t ext_ld_lane, int ext_rows,
                               const int32_t* cond_phase, int pos,
-                              int cond_rate, void* stream) {
+                              int cond_rate, int split, int bn, int groups,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ExtCond e{ext, ext_ld_row, ext_ld_lane, cond_phase, ext_rows, pos,
                   cond_rate};
-  if (w_bf16) {
-    const dim3 grid((n + TBN - 1) / TBN, (m + TBM - 1) / TBM);
-    const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-    if (a_levels)
-      gemm_bias_wmma_kernel<true><<<grid, TTHREADS, 0, s>>>(
-          a, lda, wb, bias, add, ldadd, e, c, ldc, m, n, k, q_half);
-    else
-      gemm_bias_wmma_kernel<false><<<grid, TTHREADS, 0, s>>>(
-          a, lda, wb, bias, add, ldadd, e, c, ldc, m, n, k, q_half);
-  } else {
+  if (!w_bf16) {
     launch<float>(a, a_levels, lda, w, bias, add, ldadd, e, c, ldc, m, n, k,
                   q_half, s);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  namespace sk = srnn::skinny;
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  int exp2 = 0;
+  const bool pow2 = q_half > 0.f && std::frexp(q_half, &exp2) == 0.5f;
+  sk::Problem p{a, lda, q_half, pow2 ? 1.f / q_half : 0.f, wb, wb, k, m, n, k,
+                split, groups, 0, 0};
+  const int base = ext ? pos / cond_rate : 0;
+  const int hi = base + 1 < ext_rows ? base + 1 : ext_rows - 1;
+  K2Epilogue epi{bias, add, ldadd, ext, ext_ld_row, ext_ld_lane, cond_phase,
+                 base, ext ? hi : 0, ext ? pos % cond_rate : 0,
+                 ext ? cond_rate : 1, c, ldc, 0};
+  epi.vec = n % 4 == 0 && ldc % 4 == 0 && aligned16(c) &&
+            (!bias || aligned16(bias)) &&
+            (!add || (ldadd % 4 == 0 && aligned16(add))) &&
+            (!ext || (ext_ld_row % 4 == 0 && ext_ld_lane % 4 == 0 &&
+                      aligned16(ext)));
+  return a_levels ? sk::run<sk::A_LEVELS>(p, bn, epi, s)
+                  : sk::run<sk::A_F32>(p, bn, epi, s);
+}
+
+// Clusters of `split` CTAs the card holds at once for K2's float32-A
+// core at tile width bn (the plan's occupancy), or -1.
+extern "C" int srnn_gemm_bias_clusters(int split, int bn) {
+  namespace sk = srnn::skinny;
+  return bn == 64 ? sk::max_clusters<64, sk::A_F32, K2Epilogue>(split)
+                  : sk::max_clusters<128, sk::A_F32, K2Epilogue>(split);
 }

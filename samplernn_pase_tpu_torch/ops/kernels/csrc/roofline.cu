@@ -26,19 +26,20 @@
 // matrices), relu to bf16, [B,H]x[H,H], relu to bf16, [B,H]x[H,q] added
 // into the accumulator.  The inputs do not change from step to step, as
 // in the TPU kernel; every product is computed and kept live all the
-// same.  Each product is one launch of a tensor-core tile kernel (64x64
-// output tiles, four warps of 2x2 WMMA 16x16x16 bf16 fragments, 64-deep K
-// slices staged through shared memory with the next slice prefetched into
-// registers, as K2); one call enqueues n_frames * (1 + 3 f1) of them.
-// Bound: operations, 26.8 GFLOP per frame at the flagship's shapes, 27 us
-// at 989 TFLOP/s; at M = B = 128 a product has only 2 x (N / 64) tiles,
-// far too few blocks for 132 SMs, which is what this kernel measures
-// first.  Needs B, H and q multiples of 64.
-
-#include <mma.h>
+// same.  Each product is one launch of the skinny split-K wgmma core that
+// K2 uses (skinny_gemm.cuh: K split across a thread-block cluster, W by
+// TMA, A staged by TMA, partials summed in rank order
+// through distributed shared memory), with K9's epilogue after the sum;
+// one call enqueues n_frames * (1 + 3 f1) of them, each on the plan its
+// K and N give (decode.gemm_plan, passed in by the wrapper).  Bound:
+// operations, 26.8 GFLOP per frame at the flagship's shapes, 27 us at
+// 989 TFLOP/s; a product at M = B = 128 is bound by its weight bytes,
+// which its plan spreads over 16-128 CTAs.  Needs B, H and q multiples
+// of 64.
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "skinny_gemm.cuh"
 
 namespace {
 
@@ -135,118 +136,60 @@ vpu_tail_kernel(const float* __restrict__ logits,
 
 // ---------------------------------------------------------------- K9 --
 
-constexpr int TBM = 64, TBN = 64, TBK = 64, TTHREADS = 128;
-constexpr int LDA = TBK + 8, LDW = TBN + 8, LDC = TBN + 4;  // padded rows
-
-// What a product does with its float32 tile: store it (f32), store
-// relu(v) rounded to bf16, and/or add it into acc's first acc_cols
-// columns.
+// What a product does with its float32 tile (after the cluster's split-K
+// sum): store it (f32), store relu(v) rounded to bf16, and/or add it into
+// acc's first acc_cols columns.  Four columns at a time; every width is a
+// multiple of 64.
 struct Epilogue {
-  float* store;
+  float* store_f32;
   __nv_bfloat16* relu_bf16;
   float* acc;
   int acc_cols;
-};
 
-// C[M,N] = A[M,K] @ W[K,N], bf16 in, float32 accumulate; A's rows are
-// lda apart; W's rows [0, k_split) come from w0 and [k_split, K) from w1.
-// M, N, K, k_split and lda are multiples of 64 (8 for lda); W and every
-// output are row-major and contiguous.
-__global__ void __launch_bounds__(TTHREADS)
-mxu_gemm_kernel(const __nv_bfloat16* __restrict__ a, int64_t lda,
-                const __nv_bfloat16* __restrict__ w0,
-                const __nv_bfloat16* __restrict__ w1, int k_split, int m,
-                int n, int k, Epilogue epi) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(32) __nv_bfloat16 as[TBM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 ws[TBK * LDW];
-  __shared__ __align__(32) float cs[TBM * LDC];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;        // warp's 32x32 sub-tile
-  const int row0 = blockIdx.y * TBM, col0 = blockIdx.x * TBN;
-  constexpr int PER = TBM * TBK / (8 * TTHREADS);    // 8-bf16 vectors
-  uint4 ra[PER], rw[PER];
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int f = tid + r * TTHREADS, row = f / (TBK / 8);
-      const int kk = (f % (TBK / 8)) * 8;
-      ra[r] = *reinterpret_cast<const uint4*>(
-          a + static_cast<int64_t>(row0 + row) * lda + k0 + kk);
-      const int gk = k0 + f / (TBN / 8), gc = col0 + (f % (TBN / 8)) * 8;
-      const __nv_bfloat16* wrow =
-          gk < k_split ? w0 + static_cast<int64_t>(gk) * n
-                       : w1 + static_cast<int64_t>(gk - k_split) * n;
-      rw[r] = *reinterpret_cast<const uint4*>(wrow + gc);
-    }
+  struct In {
+    float4 acc;
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  __device__ __forceinline__ In load(int row, int col, int) const {
+    In in{make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (acc && col < acc_cols)
+      in.acc = *reinterpret_cast<const float4*>(
+          acc + static_cast<int64_t>(row) * acc_cols + col);
+    return in;
+  }
 
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += TBK) {
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int f = tid + r * TTHREADS;
-      *reinterpret_cast<uint4*>(as + (f / (TBK / 8)) * LDA +
-                                (f % (TBK / 8)) * 8) = ra[r];
-      *reinterpret_cast<uint4*>(ws + (f / (TBN / 8)) * LDW +
-                                (f % (TBN / 8)) * 8) = rw[r];
+  __device__ __forceinline__ void store(int row, int col, float4 v,
+                                        const In& in, int n) const {
+    const int64_t at = static_cast<int64_t>(row) * n + col;
+    if (store_f32) *reinterpret_cast<float4*>(store_f32 + at) = v;
+    if (relu_bf16) {
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(relu_bf16 + at);
+      dst[0] = __floats2bfloat162_rn(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
+      dst[1] = __floats2bfloat162_rn(fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
     }
-    __syncthreads();
-    if (k0 + TBK < k) fetch(k0 + TBK);   // next slice, in flight meanwhile
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDA + kk,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], ws + kk * LDW + wn * 32 + j * 16, LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+    if (acc && col < acc_cols)
+      *reinterpret_cast<float4*>(acc + static_cast<int64_t>(row) * acc_cols +
+                                 col) =
+          make_float4(in.acc.x + v.x, in.acc.y + v.y, in.acc.z + v.z,
+                      in.acc.w + v.w);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < TBM * TBN; e += TTHREADS) {
-    const int gr = row0 + e / TBN, gc = col0 + e % TBN;
-    const float v = cs[(e / TBN) * LDC + e % TBN];
-    const int64_t at = static_cast<int64_t>(gr) * n + gc;
-    if (epi.store) epi.store[at] = v;
-    if (epi.relu_bf16) epi.relu_bf16[at] = __float2bfloat16_rn(fmaxf(v, 0.f));
-    if (epi.acc && gc < epi.acc_cols) {
-      float* p = epi.acc + static_cast<int64_t>(gr) * epi.acc_cols + gc;
-      *p = *p + v;
-    }
-  }
-}
+};
+
+// C[M,N] = A[M,K] @ W[K,N] on the skinny core, bf16 in, float32
+// accumulate; A's rows are lda apart; W's rows [0, k_split) come from w0
+// and [k_split, K) from w1.  The plan (split, bn, groups) comes from
+// the wrapper (vpu_ceiling.py, decode.gemm_plan of K and N).
+struct Plan {
+  int split, bn, groups;
+};
 
 int gemm(const __nv_bfloat16* a, int64_t lda, const __nv_bfloat16* w0,
          const __nv_bfloat16* w1, int k_split, int m, int n, int k,
-         Epilogue epi, cudaStream_t stream) {
-  mxu_gemm_kernel<<<dim3(n / TBN, m / TBM), TTHREADS, 0, stream>>>(
-      a, lda, w0, w1, k_split, m, n, k, epi);
-  return static_cast<int>(cudaGetLastError());
+         const Plan& pl, Epilogue epi, cudaStream_t stream) {
+  namespace sk = srnn::skinny;
+  const sk::Problem p{a, lda, 1.f, 1.f, w0, w1 ? w1 : w0, k_split, m, n, k,
+                      pl.split, pl.groups, 0, 0};
+  return sk::run<sk::A_BF16>(p, pl.bn, epi, stream);
 }
 
 }  // namespace
@@ -266,31 +209,38 @@ extern "C" int srnn_vpu_tail(const float* logits, const float* gum,
   return static_cast<int>(cudaGetLastError());
 }
 
+// plans: [4][3] ints (split, bn, groups) of the hoist, the window head
+// and tail, the hidden product and the output product
 extern "C" int srnn_mxu_stream(const void* ebuf, const void* w1,
                                const void* w2, const void* wh, const void* wo,
                                const void* wup, float* acc, float* hoist,
                                void* hm, void* h2, int b, int h, int q,
-                               int f1, int n_frames, void* stream) {
+                               int f1, int n_frames, const int* plans,
+                               void* stream) {
   using bf = const __nv_bfloat16*;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf e = static_cast<bf>(ebuf);
   const int ring = f1 * q, head = (f1 - 1) * q;
   __nv_bfloat16* hmb = static_cast<__nv_bfloat16*>(hm);
   __nv_bfloat16* h2b = static_cast<__nv_bfloat16*>(h2);
+  const Plan up{plans[0], plans[1], plans[2]};
+  const Plan win{plans[3], plans[4], plans[5]};
+  const Plan hid{plans[6], plans[7], plans[8]};
+  const Plan out{plans[9], plans[10], plans[11]};
   for (int frame = 0; frame < n_frames; ++frame) {
     // the hoist reads the ring's first h columns (rows ring apart)
     int err = gemm(e, ring, static_cast<bf>(wup), nullptr, h, b, f1 * h, h,
-                   Epilogue{hoist, nullptr, acc, q}, s);
+                   up, Epilogue{hoist, nullptr, acc, q}, s);
     if (err) return err;
     for (int i = 0; i < f1; ++i) {
       // head and tail: the whole ring against w1's then w2's rows
       err = gemm(e, ring, static_cast<bf>(w1), static_cast<bf>(w2), head, b,
-                 h, ring, Epilogue{nullptr, hmb, nullptr, 0}, s);
+                 h, ring, win, Epilogue{nullptr, hmb, nullptr, 0}, s);
       if (!err)
-        err = gemm(hmb, h, static_cast<bf>(wh), nullptr, h, b, h, h,
+        err = gemm(hmb, h, static_cast<bf>(wh), nullptr, h, b, h, h, hid,
                    Epilogue{nullptr, h2b, nullptr, 0}, s);
       if (!err)
-        err = gemm(h2b, h, static_cast<bf>(wo), nullptr, h, b, q, h,
+        err = gemm(h2b, h, static_cast<bf>(wo), nullptr, h, b, q, h, out,
                    Epilogue{nullptr, nullptr, acc, q}, s);
       if (err) return err;
     }

@@ -8,7 +8,8 @@ Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
   with supplied, shared-seed or per-lane-key noise.
 * K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)
   (+ the lane's conditioning row)`` for every product outside the MLP,
-  with int32 levels dequantized on load.
+  with int32 levels dequantized on load; bf16 weights on the split-K
+  wgmma core ``csrc/skinny_gemm.cuh`` by ``gemm_plan``.
 * K3 ``gru_gates`` (``csrc/gru_gates.cu``): the GRU gate math.
 * K6 ``lstm_gates`` (``csrc/lstm_gates.cu``): the LSTM gate math, on the
   gate sum that K2 forms in one buffer (its ``add`` input).
@@ -64,7 +65,7 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _SIGNATURES = {
     "gemm_bias": ("srnn_gemm_bias",
                   [_P, _I, _I64, _P, _I, _P, _P, _I64, _P, _I64, _I, _I, _I,
-                   _F, _P, _I64, _I64, _I, _P, _I, _I, _P]),
+                   _F, _P, _I64, _I64, _I, _P, _I, _I, _I, _I, _I, _P]),
     "gru_gates": ("srnn_gru_gates",
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
     "lstm_gates": ("srnn_lstm_gates",
@@ -136,6 +137,96 @@ _W_DTYPES = (torch.float32, torch.bfloat16)
 
 # ----------------------------------------------------------------- K2 --
 
+# The skinny wgmma core (csrc/skinny_gemm.cuh) that K2's bf16 route and K9
+# run on: its shapes, mirrored here so that the plan can be checked on the
+# CPU.
+TILE_M = 128                    # rows per CTA, two 64-row warpgroups
+STAGE_K = 64                    # W rows per ring stage
+SMEM_MAX = 231424               # dynamic shared memory per CTA: the H100's
+                                # 227 KB less 1 KB of static (mbarriers)
+STAGES = {64: 10, 128: 6}       # ring stages per tile width
+MIN_SLICE = 256                 # rows of W per CTA before K is split
+
+
+class GemmPlan(NamedTuple):
+    """How the core runs one product: ``split`` CTAs of a thread-block
+    cluster, one K-slice each (``k_slices``); output tiles ``bn`` columns
+    wide, walked by ``groups`` column groups (group g takes tiles g, g +
+    groups, ..); ``smem`` bytes of shared memory per CTA; ``ctas`` per
+    128-row block."""
+    split: int
+    bn: int
+    groups: int
+    smem: int
+    ctas: int
+
+
+def _plan_smem(bn: int) -> int:
+    """Shared memory of a CTA: alignment, the W ring, two bf16 A panels and
+    the larger of the float32 partial tile and two staged A panels
+    (``skinny_gemm.cuh:smem_bytes``)."""
+    return 1024 + STAGES[bn] * STAGE_K * bn * 2 + 2 * TILE_M * 128 \
+        + max(TILE_M * (bn + 8) * 4, 2 * TILE_M * 64 * 4)
+
+
+def k_slices(k: int, split: int) -> list:
+    """The K-slices of the ``split`` CTAs of a cluster, in rank order:
+    [start, end) in rows of W, multiples of 16 covering K rounded up to 16
+    (rows past K are zero)."""
+    k16 = -(-k // 16)
+    return [(16 * (r * k16 // split), 16 * ((r + 1) * k16 // split))
+            for r in range(split)]
+
+
+def _resident(split: int) -> int:
+    """CTAs the H100 holds at once for the core, clusters of ``split``
+    (``cudaOccupancyMaxActiveClusters`` on the card: 132 clusters of 1,
+    66 of 2, 30 of 4, 15 of 8; one CTA per SM)."""
+    return 132 if split <= 2 else 120
+
+
+def gemm_plan(k: int, n: int, w_dtype=torch.bfloat16) -> GemmPlan | None:
+    """The plan of K2's bf16 product [M, k] @ [k, n] (and K9's): a pure
+    function of K, N and the weight type, never of M, so that every row
+    adds the same partials in the same order whatever the batch (a pool
+    lane equals its solo stream bit for bit).  None for float32 weights,
+    which take K2's FMA route.
+
+    One output tile per CTA, all CTAs resident at once: the largest split
+    that K allows (slices of at least ``MIN_SLICE`` rows: below that the
+    cluster's partial sum through distributed shared memory costs more
+    than the shorter K loop saves) and that keeps ``split * tiles`` CTAs
+    resident; 64-column tiles where that gives more CTAs than 128-column
+    ones, else 128.  Where even the 128-column tiles outnumber the SMs,
+    clusters of 2 walk them in rounds.  Fitted to the core's sweep on
+    the H100 (``scripts/gemm_ablation.py --sweep``, PERF.md)."""
+    if w_dtype != torch.bfloat16:
+        return None
+    if k < 1 or n < 1:
+        raise ValueError(f"gemm_plan: K={k}, N={n}")
+    k16 = -(-k // 16)
+    allow = min(8, 1 << (max(1, k16 * 16 // MIN_SLICE).bit_length() - 1))
+
+    def resident(bn):
+        """(split, tiles) with every tile's CTAs resident, or None."""
+        tiles = -(-n // bn)
+        fits = [s for s in (1, 2, 4, 8)
+                if s <= allow and s * tiles <= _resident(s)]
+        return (max(fits), tiles) if fits else None
+
+    wide, narrow = resident(128), resident(64)
+    if narrow and (not wide or narrow[0] * narrow[1] > wide[0] * wide[1]):
+        bn, (split, groups) = 64, narrow
+    elif wide:
+        bn, (split, groups) = 128, wide
+    else:
+        tiles = -(-n // 128)
+        bn, split = 128, min(2, allow)
+        rounds = -(-tiles // (_resident(split) // split))
+        groups = -(-tiles // rounds)
+    return GemmPlan(split, bn, groups, _plan_smem(bn), split * groups)
+
+
 def _ext_base(ext, pos: int, cond_rate: int) -> int:
     """The row K2's conditioning epilogue starts from at ``pos``; raises
     when ``ext`` does not hold it."""
@@ -166,7 +257,7 @@ def gemm_bias_plain(a, w, bias=None, add=None, levels_q=0, ext=None,
 
 
 def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
-              pos=0, cond_rate=0):
+              pos=0, cond_rate=0, plan=None):
     """K2: ``round(A) @ W + bias (+ add) (+ ext row)`` -> float32 ``[M, N]``.
 
     a [M, K] float32 (or int32 levels when ``levels_q`` is the level
@@ -176,7 +267,9 @@ def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
     (last axis contiguous) with cphase [M] int32, ``pos`` and
     ``cond_rate``: row m adds ``ext[r, m]``, r = ``pos // cond_rate``, or
     ``min(that + 1, R - 1)`` when ``cphase[m] + pos % cond_rate >=
-    cond_rate`` (``megagen.py:211-219``)."""
+    cond_rate`` (``megagen.py:211-219``).  ``plan``: the core's plan for
+    bf16 weights, ``gemm_plan(K, N)`` when None (another is for timing
+    sweeps: rows stay bit-equal across batch sizes under any one plan)."""
     if _on_cpu(a, w, bias, add, ext, cphase):
         return gemm_bias_plain(a, w, bias, add, levels_q, ext, cphase, pos,
                                cond_rate)
@@ -200,11 +293,14 @@ def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
         _ext_base(ext, pos, cond_rate)
         ext_args = (ext.data_ptr(), ext.stride(0), ext.stride(1),
                     ext.shape[0], cphase.data_ptr(), int(pos), int(cond_rate))
+    if plan is None or w.dtype != torch.bfloat16:
+        plan = gemm_plan(k, n, w.dtype)
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     _launch("gemm_bias", a.data_ptr(), int(bool(levels_q)), a.stride(0),
-            w.data_ptr(), int(w.dtype == torch.bfloat16), _ptr(bias),
+            w.data_ptr(), int(plan is not None), _ptr(bias),
             _ptr(add), 0 if add is None else add.stride(0), c.data_ptr(), n,
-            m, n, k, (levels_q or 2) / 2.0, *ext_args, _stream(a),
+            m, n, k, (levels_q or 2) / 2.0, *ext_args,
+            *(plan[:3] if plan else (0, 0, 0)), _stream(a),
             mode="cond" if ext is not None else None)
     return c
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from samplernn_pase_tpu_torch.ops.kernels import _build
+from samplernn_pase_tpu_torch.ops.kernels.decode import gemm_plan
 from samplernn_pase_tpu_torch.ops.kernels.noise import gumbel_block
 
 B, H, Q, F1 = 128, 1024, 256, 16
@@ -60,7 +61,7 @@ _SIGNATURES = {
     "vpu_tail": ("srnn_vpu_tail", [_P, _P, _I, ctypes.c_uint64,
                                    ctypes.c_float, _I, _P, _P, _I, _I, _I,
                                    _P]),
-    "mxu_stream": ("srnn_mxu_stream", [_P] * 10 + [_I] * 5 + [_P]),
+    "mxu_stream": ("srnn_mxu_stream", [_P] * 10 + [_I] * 5 + [_P, _P]),
 }
 
 
@@ -192,9 +193,15 @@ def mxu_stream(ebuf, w1, w2, wh, wo, wup, *, n_frames):
                         device=ebuf.device)
     hm = torch.empty((b, hdim), dtype=torch.bfloat16, device=ebuf.device)
     h2 = torch.empty_like(hm)
+    # each product's plan (K, N): the hoist, the window head and tail, the
+    # hidden and the output products
+    plans = (ctypes.c_int * 12)(*(v for k, n in (
+        (hdim, f1 * hdim), (f1 * q, hdim), (hdim, hdim), (hdim, q))
+        for v in gemm_plan(k, n)[:3]))
     _launch("mxu_stream", *(t.data_ptr() for t in args.values()),
             acc.data_ptr(), hoist.data_ptr(), hm.data_ptr(), h2.data_ptr(),
-            b, hdim, q, f1, int(n_frames), _stream(ebuf))
+            b, hdim, q, f1, int(n_frames), ctypes.addressof(plans),
+            _stream(ebuf))
     return acc
 
 

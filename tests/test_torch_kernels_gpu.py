@@ -38,54 +38,111 @@ def _model(dev, dtype="float32", frame_sizes=(4, 2), dim=64,
     return cfg, params
 
 
+# K2's shapes: M from a solo stream to the conditioning projection, K from
+# a tier input of 4 levels to K9's window, N from K9's output product to
+# the bottom upsample (1000 and 70: ragged tiles; 70 also not a multiple
+# of 8, which takes the core's plain W loads); every second case reads A
+# as int32 levels; A rows are strided (misaligned for 16-byte loads where
+# the pad is odd) and so are the rows of ``add``
+_M = (1, 5, 128, 3456)
+_K = (4, 16, 64, 256, 1024, 4096)
+_N = (256, 1000, 1024, 3072, 16384)
+GEMM_CASES = [(m, k, _N[(i + j) % len(_N)], (i + j) % 2 == 0)
+              for i, m in enumerate(_M) for j, k in enumerate(_K)] + [
+    (5, 16, 70, True), (128, 200, 96, False)]
+
+
+def _gemm_inputs(dev, m, k, n, levels, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = 3 if (m + k) % 2 else 4
+    if levels:
+        a = torch.randint(0, 256, (m, k + pad), device=dev, generator=gen,
+                          dtype=torch.int32)[:, pad:]
+    else:
+        a = torch.randn(m, k + pad, device=dev, generator=gen)[:, :k]
+    w = torch.randn(k, n, device=dev, generator=gen).to(dtype)
+    bias = torch.randn(n, device=dev, generator=gen)
+    add = torch.randn(m, 2 * n, device=dev, generator=gen)[:, n:]
+    return a, w, bias, add
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gemm_bias_matches_plain(cuda, dtype):
-    gen = torch.Generator().manual_seed(1)
-    for m, k, n, levels in ((5, 16, 70, True), (128, 200, 96, False)):
-        if levels:
-            a = torch.randint(0, 256, (m, 2 * k), generator=gen,
-                              dtype=torch.int32)[:, :k]
-        else:
-            a = torch.randn(m, k, generator=gen)
-        w = torch.randn(k, n, generator=gen).to(dtype)
-        bias = torch.randn(n, generator=gen)
-        add = torch.randn(m, 2 * n, generator=gen)[:, n:]
-        args = [t.to(cuda) for t in (a, w, bias, add)]
-        q = 256 if levels else 0
-        got = kdec.gemm_bias(*args, levels_q=q)
-        want = kdec.gemm_bias_plain(*args, levels_q=q)
+@pytest.mark.parametrize("m,k,n,levels", GEMM_CASES)
+def test_gemm_bias_matches_plain(cuda, dtype, m, k, n, levels):
+    a, w, bias, add = _gemm_inputs(cuda, m, k, n, levels, dtype, 1)
+    q = 256 if levels else 0
+    for b, ad in ((bias, add), (None, None)):
+        got = kdec.gemm_bias(a, w, b, ad, levels_q=q)
+        want = kdec.gemm_bias_plain(a, w, b, ad, levels_q=q)
         torch.testing.assert_close(got, want, atol=1e-5 * k ** 0.5,
                                    rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gemm_bias_conditioning_epilogue_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("m,k,n,levels", GEMM_CASES)
+def test_gemm_bias_conditioning_epilogue_matches_plain(cuda, dtype, m, k, n,
+                                                       levels):
     """K2's conditioning epilogue: the kernel's result with it equals its
     result without it plus the selected row, exactly (the add is last),
     and agrees with the plain version; phases cover both rows and the
     clamp of the high row."""
-    gen = torch.Generator().manual_seed(11)
-    m, k, n, rows, rate = 70, 48, 96, 3, 10
-    a = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32)
-    w = torch.randn(k, n, generator=gen).to(dtype)
-    bias, add = torch.randn(n, generator=gen), torch.randn(m, n, generator=gen)
+    rows, rate = 3, 10
+    a, w, bias, add = _gemm_inputs(cuda, m, k, n, levels, dtype, 11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
     # [B, R, N] storage read as [R, B, N]: the projected rows' layout
-    ext = torch.randn(m, rows, n, generator=gen).transpose(0, 1)
-    phase = torch.randint(0, rate, (m,), generator=gen, dtype=torch.int32)
-    a, w, bias, add, ext, phase = (t.to(cuda) for t in
-                                   (a, w, bias, add, ext, phase))
-    base = kdec.gemm_bias(a, w, bias, add, levels_q=256)
+    ext = torch.randn(m, rows, n, device=cuda, generator=gen).transpose(0, 1)
+    phase = torch.randint(0, rate, (m,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    q = 256 if levels else 0
+    base = kdec.gemm_bias(a, w, bias, add, levels_q=q)
     for pos in (0, 6, 13, 27):
         kw = dict(ext=ext, cphase=phase, pos=pos, cond_rate=rate)
-        got = kdec.gemm_bias(a, w, bias, add, levels_q=256, **kw)
+        got = kdec.gemm_bias(a, w, bias, add, levels_q=q, **kw)
         lo = pos // rate
         hi = min(lo + 1, rows - 1)
         bump = (phase.long() + pos % rate >= rate)[:, None]
         row = torch.where(bump, ext[hi], ext[lo])
         torch.testing.assert_close(got, base + row, rtol=0, atol=0)
         torch.testing.assert_close(
-            got, kdec.gemm_bias_plain(a, w, bias, add, 256, **kw),
+            got, kdec.gemm_bias_plain(a, w, bias, add, q, **kw),
             atol=1e-5 * k ** 0.5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,n,levels,with_add,cond", [
+    (16, 1024, True, True, True), (64, 1024, True, False, True),
+    (256, 1024, False, False, False), (1024, 3072, False, False, False),
+    (1024, 4096, False, True, False), (1024, 16384, False, False, False),
+    (4096, 1024, False, False, False), (200, 70, True, True, False)])
+def test_gemm_bias_rows_independent_of_batch(cuda, k, n, levels, with_add,
+                                             cond):
+    """bf16 K2: row b of an M=128 call is bit-equal to the same row in an
+    M=1 and an M=5 call (the plan does not depend on M: the same partials
+    are added in the same order), and two calls are bit-equal."""
+    m, rows, rate = 128, 3, 10
+    a, w, bias, add = _gemm_inputs(cuda, m, k, n, levels, torch.bfloat16, 5)
+    add = add if with_add else None
+    q = 256 if levels else 0
+    kw = {}
+    if cond:
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        ext = torch.randn(m, rows, n, device=cuda,
+                          generator=gen).transpose(0, 1)
+        phase = torch.randint(0, rate, (m,), device=cuda, generator=gen,
+                              dtype=torch.int32)
+        kw = dict(ext=ext, cphase=phase, pos=17, cond_rate=rate)
+
+    def call(lo, hi):
+        sub = dict(kw, ext=kw["ext"][:, lo:hi],
+                   cphase=kw["cphase"][lo:hi]) if kw else {}
+        return kdec.gemm_bias(a[lo:hi], w, bias,
+                              None if add is None else add[lo:hi],
+                              levels_q=q, **sub)
+
+    full = call(0, m)
+    torch.testing.assert_close(call(0, m), full, rtol=0, atol=0)
+    for lo, hi in ((0, 1), (127, 128), (7, 12), (60, 65)):
+        torch.testing.assert_close(call(lo, hi), full[lo:hi], rtol=0,
+                                   atol=0)
 
 
 def test_gru_gates_matches_plain(cuda):
