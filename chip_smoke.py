@@ -18,7 +18,10 @@ Phases (any failure ends the run with a non-zero exit):
    and timed beside its plain version, its bound and one library call
    computing the same function (K2: torch.addmm; K3:
    aten._thnn_fused_gru_cell; K4/K5: cuDNN's GRU/LSTM through
-   torch.nn.GRU/LSTM, forward and forward + backward; K6:
+   torch.nn.GRU/LSTM, its forward, forward + backward and backward share
+   (the difference, the backward kernel's library_ms), with each K4/K5
+   launch's device time (input product, chain, dX, dWih, dWhh) and the
+   chain's us per step from scripts/seq_split.py; K6:
    aten._thnn_fused_lstm_cell);
 3. the flagship's generation at full width (2-tier GRU, frame_sizes
    (16, 4), dim 1024, embed 256, q 256, bf16) with random weights from a
@@ -291,6 +294,7 @@ def check_sequence(torch, dev, rt, cell: str, b: int, tiers, h: int):
     the float32 check, "rel_bf16" the worst bf16 error over max|plain|,
     times averaged over the tiers (one launch of each per tier per train
     step); or raises SmokeFailure."""
+    from samplernn_pase_tpu_torch.scripts import seq_split
     sp = SEQ[cell]
     name = f"{cell}_sequence"
     fwd, bwd = getattr(rt, f"{name}_fwd"), getattr(rt, f"{name}_bwd")
@@ -322,7 +326,7 @@ def check_sequence(torch, dev, rt, cell: str, b: int, tiers, h: int):
         got = fwd(*fargs)
         gotb = bwd(*bargs)
         wantb = bwd_plain(*bargs)
-        again = bwd(*bargs)
+        again = [bwd(*bargs) for _ in range(2)]
         torch.cuda.synchronize()
         # bf16: a float32 sum taken in another order can land on the other
         # side of a bf16 rounding boundary and move a stored value by one
@@ -338,10 +342,17 @@ def check_sequence(torch, dev, rt, cell: str, b: int, tiers, h: int):
             stats[d]["rel_bf16"] = max(stats[d]["rel_bf16"], r)
             require(r <= 2 ** -7, f"{name} bf16 N={n} {out}: {r} of "
                     "max|want| > 2**-7")
-        require(all(torch.equal(a, c) for a, c in zip(gotb, again)),
-                f"{name}_bwd is not deterministic")
+        require(all(torch.equal(a, c) for run in again
+                    for a, c in zip(gotb, run)),
+                f"{name}_bwd is not deterministic over three runs")
         fms, fwall = device_ms(torch, lambda: fwd(*fargs), 5)
         bms, bwall = device_ms(torch, lambda: bwd(*bargs), 5)
+        # each launch's device time: the input product and the chain
+        # forward; the chain, dX, dWih and dWhh backward
+        fsplit = seq_split.split(seq_split.kernel_events(
+            torch, lambda: fwd(*fargs)), seq_split.FWD_ROLES)
+        bsplit = seq_split.split(seq_split.kernel_events(
+            torch, lambda: bwd(*bargs)), seq_split.BWD_ROLES)
         fpl, _ = device_ms(torch, lambda: getattr(
             rt, f"{name}_fwd_plain")(*fargs), 1)
         bpl, _ = device_ms(torch, lambda: bwd_plain(*bargs), 1)
@@ -382,14 +393,20 @@ def check_sequence(torch, dev, rt, cell: str, b: int, tiers, h: int):
         print(f"{tag} bf16 [N={n}, B={b}, H={h}]: "
               f"{', '.join(rel)} of max (bound 2**-7), deterministic; "
               f"forward {fms * 1e3:.1f} us (wall {fwall * 1e3:.1f} us), "
-              f"plain {fpl * 1e3:.1f} us, cuDNN {lf * 1e3:.1f} us, bound "
-              f"{fb * 1e3:.1f} us ({fby}); backward {bms * 1e3:.1f} us "
-              f"(wall {bwall * 1e3:.1f} us), plain {bpl * 1e3:.1f} us, "
-              f"cuDNN forward+backward {lfb * 1e3:.1f} us (backward share "
-              f"{(lfb - lf) * 1e3:.1f} us), bound {bb * 1e3:.1f} us ({bby}; "
-              f"the Pallas kernel's 6 products: "
+              f"plain {fpl * 1e3:.1f} us, cuDNN forward {lf * 1e3:.1f} us, "
+              f"bound {fb * 1e3:.1f} us ({fby}); backward {bms * 1e3:.1f} "
+              f"us (wall {bwall * 1e3:.1f} us), plain {bpl * 1e3:.1f} us, "
+              f"cuDNN forward + backward {lfb * 1e3:.1f} us, cuDNN backward "
+              f"share {(lfb - lf) * 1e3:.1f} us, bound {bb * 1e3:.1f} us "
+              f"({bby}; the Pallas kernel's 6 products: "
               f"{n * 6 * 2.0 * b * h * g * h / PEAK_BF16 * 1e6:.1f} us); "
               f"cuDNN h_seq vs ours max {lib_err.item():.3g}")
+        print(f"  {tag} launches, us: forward "
+              + ", ".join(f"{k} {v:.1f}" for k, v in fsplit.items())
+              + f" (chain {fsplit['chain'] / n:.2f} us/step); backward "
+              + ", ".join(f"{k} {v:.1f}" for k, v in bsplit.items())
+              + f" (chain {bsplit['chain'] / n:.2f} us/step); plan "
+              f"{tuple(rt.chain_plan(cell, h, b)[:5])}")
         for d, ms, pl, lb, bd, by in (("fwd", fms, fpl, lf, fb, fby),
                                       ("bwd", bms, bpl, lfb - lf, bb, bby)):
             st = stats[d]

@@ -40,16 +40,13 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace srnn {
 namespace skinny {
+
+using namespace sm90;   // TMA, mbarriers, wgmma, tensor maps
 
 // Phase trace, compiled in only with SKINNY_TRACE (scripts/skinny_trace.cu):
 // thread 0 of each CTA writes clock64() at phase `i` to g_trace[cta * 64 +
@@ -125,201 +122,6 @@ struct Problem {
   int a_vec;                    // A through TMA (set by launch)
   int tma;                      // W through TMA (else plain loads)
 };
-
-// ---- PTX helpers ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// one 64 x 64 bf16 box of a W tensor map (128-byte swizzle) into shared
-// memory; completion counted on `bar`
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
-         "r"(y), "r"(smem_u32(bar)) : "memory");
-}
-// generic-proxy writes to shared memory -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor: start address, LBO and SBO (byte
-// strides, see the layouts in the kernel) and the layout (1: 128-byte
-// swizzle, atoms 1024-byte aligned).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
-                                      uint64_t db, int scale_d);
-
-// D (+)= A[64x16] (K-major) @ B[16xN] (MN-major: transpose bit 1)
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// the same with the accumulator write-only (D = A @ B): a tile's first
-// step, so that the accumulator is not live across tiles
-template <int N>
-__device__ __forceinline__ void wgmma_zero(float (&d)[N / 2], uint64_t da,
-                                           uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_zero<64>(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_zero<128>(float (&d)[64], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
-        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
-        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads across the async MMA
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // A level l as float32: l / q_half - 1, the division a multiplication by
 // the exact reciprocal where q_half is a power of two (the same result).
@@ -633,9 +435,9 @@ skinny_gemm_kernel(const Problem p, const Epi epi,
                                  16, 1024, 1);
         const uint64_t db = desc(sb + s * 2048, BK * 128, 1024, 1);
         if (s == 0 && j == 0)
-          wgmma_zero<BN>(acc, da, db);
+          wgmma_zero<BN, 0, 1>(acc, da, db);
         else
-          wgmma<BN>(acc, da, db, 1);
+          wgmma<BN, 0, 1>(acc, da, db, 1);
       }
       wgmma_commit();
       wgmma_wait<1>();             // stage j - 1's wgmma done: its A slot
@@ -660,57 +462,6 @@ skinny_gemm_kernel(const Problem p, const Epi epi,
   cluster_wait();      // no CTA leaves while its partials may be read
   SK_TRACE(8);
   SK_TIMER(63);
-}
-
-// A 2-D tensor map for TMA over a row-major [rows, cols] matrix of
-// `type` with rows `ld` elements apart: boxes of `box_rows` x 64, zero
-// fill past the edges, 128-byte swizzle or none.  Maps are kept per
-// (pointer, shape, stride, box) (the cache is emptied when it grows past
-// 4096: activations come from a few recycled allocations); the driver's
-// encoder is fetched through the runtime (no link to libcuda).  False
-// where the driver refuses it.
-inline bool tensor_map(CUtensorMap* out, const void* ptr, int rows, int cols,
-                       int64_t ld, CUtensorMapDataType type, int elem,
-                       int box_rows, bool swizzle) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  using Key = std::tuple<const void*, int, int, int64_t, int, int>;
-  static std::mutex mu;
-  static std::map<Key, CUtensorMap> cache;
-  static Encode encode = nullptr;
-  std::lock_guard<std::mutex> lock(mu);
-  const Key key{ptr, rows, cols, ld, static_cast<int>(type), box_rows};
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *out = hit->second;
-    return true;
-  }
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || !fn)
-      return false;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(out, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *out);
-  return true;
 }
 
 // W's map: [rows, cols] bf16, 64 x 64 boxes, 128-byte swizzle.

@@ -32,17 +32,15 @@ equal the reference's recompute, since ``hbuf[t] = round(h_{t-1})`` is
 what both products read.
 
 Eligibility on the H100 (``kernel_scope_error``): a GRU or an LSTM;
-``dim % 8 == 0`` (each block of the serial kernels owns 8 hidden units
-and reads rows in 16-byte vectors); each block's Whh slice and a staged
-tile in shared memory, within the 227 KB a block may use (K4: about
-48*dim + 34,816 bytes in bf16 and 96*dim + 67,584 in float32; K5: 64*dim
-+ 34,816 and 128*dim + 67,584); and all ``dim / 8`` blocks co-resident
-for the grid barrier.  The library answers the last two for the card at
-hand (``srnn_gru_seq_fits``, ``srnn_lstm_seq_fits``): on an H100 with 132
-SMs dim 1024 fits both kernels in both dtypes; float32 takes one block
-per SM, so dim <= 1,056.  Device memory holds the residuals: 24*N*B*H bytes
-for K4's xg and hg, 16*N*B*H for K5's g, plus the stored sequences in
-the weights dtype.
+``dim % 8 == 0`` (a block owns a multiple of 8 hidden units and reads rows
+in 16-byte vectors); and a chain whose blocks all fit on the card at once
+with their Whh slices in shared memory, as the library answers for the
+card at hand (``srnn_gru_seq_fits``, ``srnn_lstm_seq_fits``).  bf16: the
+plan of ``chain_plan`` (8- or 16-unit blocks, one or two per SM), which
+holds every width to 1,664 (GRU) and 1,152 (LSTM) and beyond; float32:
+dim/8 blocks of the FMA chains, one per SM, so dim <= 1,056.  Device
+memory holds the residuals: 24*N*B*H bytes for K4's xg and hg, 16*N*B*H
+for K5's g, plus the stored sequences in the weights dtype.
 
 Each wrapper runs its plain version on CPU tensors (how the CPU tests run)
 and, on CUDA tensors, launches its kernel or raises; it adds one to its
@@ -53,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,22 +64,128 @@ from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 LAUNCHES = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0,
             "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0}
 
-UNITS = 8                       # hidden units per block
+UNITS = 8                       # hidden units per block of the f32 chains
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (library, symbol, argument types)
 _SIGNATURES = {
     "gru_sequence_fwd": ("gru_sequence", "srnn_gru_seq_fwd",
-                         [_P] * 10 + [_I] * 4 + [_P]),
+                         [_P] * 11 + [_I] * 4 + [_P, _P]),
     "gru_sequence_bwd": ("gru_sequence", "srnn_gru_seq_bwd",
-                         [_P] * 17 + [_I] * 4 + [_P]),
-    "gru_fits": ("gru_sequence", "srnn_gru_seq_fits", [_I, _I]),
+                         [_P] * 19 + [_I] * 4 + [_P, _P]),
+    "gru_fits": ("gru_sequence", "srnn_gru_seq_fits", [_I, _I, _P]),
     "lstm_sequence_fwd": ("lstm_sequence", "srnn_lstm_seq_fwd",
-                          [_P] * 12 + [_I] * 4 + [_P]),
+                          [_P] * 13 + [_I] * 4 + [_P, _P]),
     "lstm_sequence_bwd": ("lstm_sequence", "srnn_lstm_seq_bwd",
-                          [_P] * 18 + [_I] * 4 + [_P]),
-    "lstm_fits": ("lstm_sequence", "srnn_lstm_seq_fits", [_I, _I]),
+                          [_P] * 20 + [_I] * 4 + [_P, _P]),
+    "lstm_fits": ("lstm_sequence", "srnn_lstm_seq_fits", [_I, _I, _P]),
 }
+
+# The bf16 chains (csrc/seq_common.cuh, namespace tc), mirrored here so
+# that their plan can be checked on the CPU.
+SMEM_MAX = 231424               # dynamic shared memory per block: the
+                                # H100's 227 KB less 1 KB of static
+SM_SMEM = 233472                # shared memory per SM (228 KB)
+BLOCK_SMEM = 1024 + 256         # per block beside its dynamic shared memory:
+                                # the SM's reservation and the mbarriers
+SMS = 132                       # the H100's SMs
+BOX = 64 * 128                  # bytes of a 64-row x 64-column bf16 box
+MAX_STAGES = 16                 # ring slots
+FLAG_STRIDE = 32                # ints between two blocks' flags: a line
+MIN_STAGES = 4                  # single-chunk slots: more than the 2
+                                # in flight
+GATES = {"gru": 3, "lstm": 4}
+
+
+class ChainPlan(NamedTuple):
+    """How a bf16 chain runs: blocks of ``units`` hidden units (8 or 16)
+    for ``rows`` rows each, multiplied ``64 * warpgroups`` rows at a time
+    (one wgmma warpgroup per 64 rows); ``dim / units`` unit groups times
+    ``ceil(batch / rows)`` row groups make ``blocks``; the staged rows go
+    through a ring of ``stages`` slots of ``chunks`` 64-column boxes (one
+    TMA copy each: 8, or 1 where the width is not a multiple of 64 or two
+    slots of 8 would not fit); ``smem`` bytes of shared memory per block
+    (the larger of the two directions)."""
+    units: int
+    warpgroups: int
+    rows: int
+    stages: int
+    chunks: int
+    smem: int
+    blocks: int
+
+
+def _chain_smem(cell: str, dim: int, units: int, warpgroups: int,
+                stages: int, chunks: int = 1) -> int:
+    """Dynamic shared memory of a chain block (``tc::smem_bytes``): 1 KB of
+    alignment, the Whh slice as wgmma's B operand in 64-column panels
+    (forward: gates * units rows of dim; backward: units rows of gates *
+    dim; panels rounded up to whole slots), the ring."""
+    g = GATES[cell]
+
+    def panels(k):
+        return -(-(-(-k // 64)) // chunks) * chunks
+
+    ws = max(panels(dim) * g * units * 128, panels(g * dim) * units * 128)
+    return 1024 + ws + stages * chunks * warpgroups * BOX
+
+
+def chain_plan(cell: str, dim: int, batch: int,
+               w_dtype=torch.bfloat16) -> ChainPlan | None:
+    """The plan of K4's (``cell="gru"``) or K5's (``"lstm"``) bf16 chains
+    for width ``dim`` and batch ``batch``: a pure function of those (never
+    of the sequence length), None for float32 weights (the FMA chains), or
+    ValueError where no plan fits the card.
+
+    Each step every block reads all ``rows`` rows of h_{t-1} (or dG_t)
+    from L2, so the bytes read per step are ``dim / units * batch`` rows:
+    above 64 rows, 16-unit blocks of 64 rows each (row groups) halve them
+    where all blocks stay resident (the flagship: 64 x 2 = 128 blocks);
+    else 8-unit blocks over all rows, one or two warpgroups; 16-unit blocks
+    where dim / 8 blocks would not all be resident; one warpgroup, then
+    two blocks per SM (a smaller ring), where nothing else fits.  Ring
+    slots of eight chunks (one TMA copy per 8 x 64 columns: on the H100 a
+    copy costs the issuing thread about 0.4 us whatever its size,
+    scripts/seq_trace.py) where the width is a multiple of 64 and two
+    such slots fit, else single chunks; as many slots as the shared memory
+    holds, up to ``MAX_STAGES``.  No clusters: pairs of blocks taking the
+    copies in turn and multicasting each to both (half the L2 reads) ran
+    5-25% slower on the H100 (PERF.md)."""
+    if w_dtype != torch.bfloat16:
+        return None
+    if cell not in GATES or dim < 8 or dim % 8 or batch < 1:
+        raise ValueError(f"chain_plan: {cell}, dim={dim}, batch={batch}")
+    wg = 1 if batch <= 64 else 2
+    candidates = [(16, 1, 64, 1)] if batch > 64 else []
+    for per_sm in (1, 2):
+        for units, wgs in ((8, wg), (16, wg), (8, 1), (16, 1)):
+            candidates.append((units, wgs, -(-batch // (64 * wgs)) * 64 * wgs,
+                               per_sm))
+    for units, wgs, rws, per_sm in candidates:
+        if dim % units:
+            continue
+        blocks = dim // units * -(-batch // rws)
+        if blocks > SMS * per_sm:
+            continue
+        room = min(SMEM_MAX, SM_SMEM // per_sm - BLOCK_SMEM)
+        for chunks, least in ((8, 2), (1, MIN_STAGES)):
+            if chunks > 1 and dim % 64:
+                continue
+            fixed = _chain_smem(cell, dim, units, wgs, 0, chunks)
+            stages = min(MAX_STAGES,
+                         (room - fixed) // (chunks * wgs * BOX))
+            if stages >= least:
+                return ChainPlan(units, wgs, rws, stages, chunks,
+                                 _chain_smem(cell, dim, units, wgs, stages,
+                                             chunks), blocks)
+    raise ValueError(f"chain_plan: no plan holds {cell} dim={dim} on the "
+                     "card")
+
+
+def _plan_args(plan):
+    """The plan as the library takes it: int[5] (units, warpgroups, rows,
+    stages, chunks), zeros for the float32 chains."""
+    return (ctypes.c_int * 5)(*(plan[:5] if plan else (0,) * 5))
 
 
 def reset_launches():
@@ -95,9 +200,13 @@ def _fn(name):
 @functools.lru_cache(maxsize=None)
 def _fits(rnn_type: str, dim: int, w_bf16: int, index: int) -> int:
     """``srnn_gru_seq_fits`` or ``srnn_lstm_seq_fits`` on CUDA device
-    ``index``, asked once per cell, width, weights dtype and device."""
+    ``index``, asked once per cell, width, weights dtype and device; bf16
+    for the plan of one row group (every batch has a plan of no more
+    blocks)."""
+    plan = chain_plan(rnn_type, dim, 1) if w_bf16 else None
+    args = _plan_args(plan)
     with torch.cuda.device(index):
-        return _fn(f"{rnn_type}_fits")(dim, w_bf16)
+        return _fn(f"{rnn_type}_fits")(dim, w_bf16, ctypes.addressof(args))
 
 
 def kernel_scope_error(rnn_type: str, dim: int, weights_dtype,
@@ -113,6 +222,12 @@ def kernel_scope_error(rnn_type: str, dim: int, weights_dtype,
     wt = torch_dtype(weights_dtype)
     if wt not in (torch.float32, torch.bfloat16):
         return f"no sequence kernel for weights dtype {wt}"
+    if wt == torch.bfloat16:
+        try:
+            chain_plan(rnn_type, dim, 1)
+        except ValueError:
+            return (f"dim {dim} needs more co-resident blocks or shared "
+                    "memory than the card holds")
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -132,6 +247,24 @@ def _launch(name, *args):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
+
+
+def _scratch(cell, hdim, b, wt, dev, plan, bwd=False):
+    """A launch's plan arguments, flags (one int32 line per block, zero) and,
+    backward, the row groups' bias partials (pointers, 0 for float32)."""
+    if wt != torch.bfloat16:
+        return _plan_args(None), None, None
+    plan = plan or chain_plan(cell, hdim, b, wt)
+    groups = -(-b // plan.rows)
+    flags = torch.zeros(hdim // plan.units * groups * FLAG_STRIDE,
+                        dtype=torch.int32, device=dev)
+    bpart = (torch.empty(groups * 4 * hdim, dtype=torch.float32, device=dev)
+             if bwd else None)
+    return _plan_args(plan), flags, bpart
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def _weights_dtype(weights_dtype) -> torch.dtype:
@@ -176,9 +309,12 @@ def gru_sequence_fwd_plain(x, h0, wih, bih, whh, bhh,
     return hbuf, h, xg, hg
 
 
-def gru_sequence_fwd(x, h0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
+def gru_sequence_fwd(x, h0, wih, bih, whh, bhh, weights_dtype="bfloat16",
+                     plan=None):
     """K4 forward: the kernel on CUDA tensors, its plain version on CPU
-    tensors; arguments and results as ``gru_sequence_fwd_plain``."""
+    tensors; arguments and results as ``gru_sequence_fwd_plain``.
+    ``plan``: the bf16 chain's, ``chain_plan`` when None (another is for
+    timing sweeps)."""
     if _on_cpu(x, h0, wih, bih, whh, bhh):
         return gru_sequence_fwd_plain(x, h0, wih, bih, whh, bhh,
                                       weights_dtype)
@@ -200,11 +336,12 @@ def gru_sequence_fwd(x, h0, wih, bih, whh, bhh, weights_dtype="bfloat16"):
     hg = torch.empty_like(xg)
     hbuf = torch.empty((n + 1, b, hdim), dtype=wt, device=dev)
     hfin = torch.empty((b, hdim), dtype=f32, device=dev)
+    pa, flags, _ = _scratch("gru", hdim, b, wt, dev, plan)
     _launch("gru_sequence_fwd", xq.data_ptr(), h0f.data_ptr(),
             w_ih.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), xg.data_ptr(), hbuf.data_ptr(), hg.data_ptr(),
-            hfin.data_ptr(), n, b, hdim, int(wt == torch.bfloat16),
-            _stream(x))
+            hfin.data_ptr(), _ptr(flags), n, b, hdim,
+            int(wt == torch.bfloat16), ctypes.addressof(pa), _stream(x))
     return hbuf, hfin, xg, hg
 
 
@@ -254,9 +391,10 @@ def gru_sequence_bwd_plain(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin,
 
 
 def gru_sequence_bwd(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin,
-                     weights_dtype="bfloat16"):
+                     weights_dtype="bfloat16", plan=None):
     """K4 backward: the kernel on CUDA tensors, its plain version on CPU
-    tensors; arguments and results as ``gru_sequence_bwd_plain``."""
+    tensors; arguments and results as ``gru_sequence_bwd_plain``;
+    ``plan`` as ``gru_sequence_fwd``'s."""
     if _on_cpu(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin):
         return gru_sequence_bwd_plain(x, h0, wih, whh, hbuf, xg, hg, dh_seq,
                                       dh_fin, weights_dtype)
@@ -284,13 +422,14 @@ def gru_sequence_bwd(x, h0, wih, whh, hbuf, xg, hg, dh_seq, dh_fin,
     dwhh = torch.empty_like(dwih)
     dbih = torch.empty(3 * hdim, dtype=f32, device=dev)
     dbhh = torch.empty_like(dbih)
+    pa, flags, bpart = _scratch("gru", hdim, b, wt, dev, plan, bwd=True)
     _launch("gru_sequence_bwd", xq.data_ptr(), h0f.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), hbuf.data_ptr(),
             xg.data_ptr(), hg.data_ptr(), dhs.data_ptr(), dhf.data_ptr(),
             d_xg.data_ptr(), d_hg.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
             dwih.data_ptr(), dbih.data_ptr(), dwhh.data_ptr(),
-            dbhh.data_ptr(), n, b, hdim, int(wt == torch.bfloat16),
-            _stream(x))
+            dbhh.data_ptr(), _ptr(bpart), _ptr(flags), n, b, hdim,
+            int(wt == torch.bfloat16), ctypes.addressof(pa), _stream(x))
     return dx, dh0, dwih, dbih, dwhh, dbhh
 
 
@@ -370,9 +509,10 @@ def lstm_sequence_fwd_plain(x, h0, c0, wih, bih, whh, bhh,
 
 
 def lstm_sequence_fwd(x, h0, c0, wih, bih, whh, bhh,
-                      weights_dtype="bfloat16"):
+                      weights_dtype="bfloat16", plan=None):
     """K5 forward: the kernel on CUDA tensors, its plain version on CPU
-    tensors; arguments and results as ``lstm_sequence_fwd_plain``."""
+    tensors; arguments and results as ``lstm_sequence_fwd_plain``;
+    ``plan`` as ``gru_sequence_fwd``'s."""
     if _on_cpu(x, h0, c0, wih, bih, whh, bhh):
         return lstm_sequence_fwd_plain(x, h0, c0, wih, bih, whh, bhh,
                                        weights_dtype)
@@ -396,11 +536,13 @@ def lstm_sequence_fwd(x, h0, c0, wih, bih, whh, bhh,
     c_seq = torch.empty((n, b, hdim), dtype=wt, device=dev)
     hfin = torch.empty((b, hdim), dtype=f32, device=dev)
     cfin = torch.empty_like(hfin)
+    pa, flags, _ = _scratch("lstm", hdim, b, wt, dev, plan)
     _launch("lstm_sequence_fwd", xq.data_ptr(), h0f.data_ptr(),
             c0f.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
             w_hh.data_ptr(), b_hh.data_ptr(), g.data_ptr(), hbuf.data_ptr(),
-            c_seq.data_ptr(), hfin.data_ptr(), cfin.data_ptr(), n, b, hdim,
-            int(wt == torch.bfloat16), _stream(x))
+            c_seq.data_ptr(), hfin.data_ptr(), cfin.data_ptr(), _ptr(flags),
+            n, b, hdim, int(wt == torch.bfloat16), ctypes.addressof(pa),
+            _stream(x))
     return hbuf, c_seq, hfin, cfin, g
 
 
@@ -442,9 +584,10 @@ def lstm_sequence_bwd_plain(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin,
 
 
 def lstm_sequence_bwd(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin,
-                      dc_fin, weights_dtype="bfloat16"):
+                      dc_fin, weights_dtype="bfloat16", plan=None):
     """K5 backward: the kernel on CUDA tensors, its plain version on CPU
-    tensors; arguments and results as ``lstm_sequence_bwd_plain``."""
+    tensors; arguments and results as ``lstm_sequence_bwd_plain``;
+    ``plan`` as ``gru_sequence_fwd``'s."""
     if _on_cpu(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin, dc_fin):
         return lstm_sequence_bwd_plain(x, c0, wih, whh, hbuf, c_seq, g,
                                        dh_seq, dh_fin, dc_fin, weights_dtype)
@@ -473,13 +616,15 @@ def lstm_sequence_bwd(x, c0, wih, whh, hbuf, c_seq, g, dh_seq, dh_fin,
     dwhh = torch.empty_like(dwih)
     dbih = torch.empty(4 * hdim, dtype=f32, device=dev)
     dbhh = torch.empty_like(dbih)
+    pa, flags, bpart = _scratch("lstm", hdim, b, wt, dev, plan, bwd=True)
     _launch("lstm_sequence_bwd", xq.data_ptr(), c0f.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), hbuf.data_ptr(),
             c_seq.data_ptr(), g.data_ptr(), dhs.data_ptr(), dhf.data_ptr(),
             dcf.data_ptr(), dg.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
             dc0.data_ptr(), dwih.data_ptr(), dbih.data_ptr(),
-            dwhh.data_ptr(), dbhh.data_ptr(), n, b, hdim,
-            int(wt == torch.bfloat16), _stream(x))
+            dwhh.data_ptr(), dbhh.data_ptr(), _ptr(bpart), _ptr(flags), n, b,
+            hdim, int(wt == torch.bfloat16), ctypes.addressof(pa),
+            _stream(x))
     return dx, dh0, dc0, dwih, dbih, dwhh, dbhh
 
 

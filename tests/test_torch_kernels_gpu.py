@@ -321,12 +321,19 @@ def _near(got, want, atol, rel=0.0):
 # values may differ by one rounding where a float32 sum lands on the
 # other side of a bf16 rounding boundary; 2**-7 of the largest value is
 # two bf16 ulps at that scale.
+# bf16 beyond the small shapes: the flagship's plan (B=128: two row groups
+# of 16-unit blocks) at N=1 and N=64, B=130 (one row group of 8-unit
+# blocks, two passes of 128 rows, 2 rows in the second), and dim 200 (25
+# blocks, a count no cluster of 2 or more divides).
 @pytest.mark.parametrize("dtype,n,b,h", [("float32", 6, 4, 128),
                                          ("float32", 3, 130, 40),
                                          ("float32", 4, 130, 1024),
                                          ("bfloat16", 5, 16, 256),
                                          ("bfloat16", 3, 130, 40),
-                                         ("bfloat16", 4, 130, 1024)])
+                                         ("bfloat16", 4, 130, 1024),
+                                         ("bfloat16", 1, 128, 1024),
+                                         ("bfloat16", 64, 128, 1024),
+                                         ("bfloat16", 3, 100, 200)])
 def test_gru_sequence_kernels_match_plain(cuda, dtype, n, b, h):
     from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
     a = _gru_inputs(cuda, n, b, h)
@@ -348,10 +355,11 @@ def test_gru_sequence_kernels_match_plain(cuda, dtype, n, b, h):
             _near(g, w, 1e-5, 1e-5 if name[:2] in ("dw", "db") else 0.0)
         else:
             _near(g, w, 0.0, 2 ** -7)
-    # a fixed summation order: the same gradient twice
-    again = rt.gru_sequence_bwd(*bargs)
-    for g, w in zip(got, again):
-        assert torch.equal(g, w)
+    # a fixed summation order: the same gradient three times
+    for _ in range(2):
+        again = rt.gru_sequence_bwd(*bargs)
+        for g, w in zip(got, again):
+            assert torch.equal(g, w)
 
 
 # ----------------------------------------------- K5 lstm_sequence --
@@ -369,13 +377,19 @@ def _lstm_inputs(dev, n, b, h, seed=7):
                 dh_fin=rnd(b, h), dc_fin=rnd(b, h))
 
 
-# tolerances as K4's above
+# tolerances as K4's above; bf16 at config 2's shape (B=64, H=1024: all of
+# h_{t-1} and a step's boxes resident) at every tier and N=1, and dim 200
+# (25 blocks)
 @pytest.mark.parametrize("dtype,n,b,h", [("float32", 6, 4, 128),
                                          ("float32", 3, 130, 40),
                                          ("float32", 4, 64, 1024),
                                          ("bfloat16", 5, 16, 256),
                                          ("bfloat16", 3, 130, 40),
-                                         ("bfloat16", 64, 64, 1024)])
+                                         ("bfloat16", 64, 64, 1024),
+                                         ("bfloat16", 16, 64, 1024),
+                                         ("bfloat16", 4, 64, 1024),
+                                         ("bfloat16", 1, 64, 1024),
+                                         ("bfloat16", 3, 100, 200)])
 def test_lstm_sequence_kernels_match_plain(cuda, dtype, n, b, h):
     from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
     a = _lstm_inputs(cuda, n, b, h)
@@ -399,11 +413,12 @@ def test_lstm_sequence_kernels_match_plain(cuda, dtype, n, b, h):
             _near(g, w, 1e-5, 1e-5 if name[:2] in ("dw", "db") else 0.0)
         else:
             _near(g, w, 0.0, 2 ** -7)
-    again = rt.lstm_sequence_bwd(*bargs)
-    for g, w in zip(got, again):
-        assert torch.equal(g, w)
+    for _ in range(2):
+        again = rt.lstm_sequence_bwd(*bargs)
+        for g, w in zip(got, again):
+            assert torch.equal(g, w)
     assert rt.LAUNCHES["lstm_sequence_fwd"] == 1
-    assert rt.LAUNCHES["lstm_sequence_bwd"] == 2
+    assert rt.LAUNCHES["lstm_sequence_bwd"] == 3
 
 
 def test_ineligible_lstm_train_route_raises_on_cuda(cuda):
