@@ -848,11 +848,13 @@ def c4_kernel_checks(torch, dev, kdec, tgen, cfg, weights, b: int,
               + (hd * hd + hd * q) * 2 + (2 * hd + q) * 4 + b * f1 * 4
               + b * 2 * 4 + b * 8)
     bd, by = bound(nbytes, 2.0 * b * f1 * (hd * hd + hd * q), PEAK_BF16)
-    print(f"K1 frame_decode lane keys [B={b}, f1={f1}] bf16 rescoring "
-          f"agreement {agree:.4f}, lane 5 alone equal to lane 5 in the "
-          f"batch; {ms * 1e3:.1f} us (wall per call {wall * 1e3:.1f} us), "
-          f"plain {pms * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}, "
-          f"{n_rows} W' rows)")
+    plan = kdec.frame_plan(hd, q, f1, torch.bfloat16)
+    print(f"K1 frame_decode lane keys [B={b}, f1={f1}] bf16 plan "
+          f"{tuple(plan)}: rescoring agreement {agree:.4f}, lane 5 alone "
+          f"equal to lane 5 in the batch; {ms * 1e3:.1f} us (wall per call "
+          f"{wall * 1e3:.1f} us), {ms * 1e3 / f1:.2f} us per step, plain "
+          f"{pms * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}, {n_rows} W' "
+          "rows)")
     k1 = {"err": 0.0, "ms": ms, "plain": pms, "bound": bd, "by": by,
           "agree": agree}
     return k2c, k2p, k1
@@ -1925,9 +1927,11 @@ def main() -> int:
                + (2 * hdim + q) * 4 + b * f1 * 4)
     flops1 = 2.0 * b * f1 * (hdim * hdim + hdim * q)
     b1, by1 = bound(nbytes1, flops1, PEAK_BF16)
-    print(f"K1 frame_decode [B={b}, f1={f1}] bf16 rescoring agreement "
-          f"greedy {k1[0.0]:.4f} sampled {k1[0.95]:.4f}; "
-          f"{ms1 * 1e3:.1f} us (wall per call {wall1 * 1e3:.1f} us), "
+    plan1 = kdec.frame_plan(hdim, q, f1, torch.bfloat16)
+    print(f"K1 frame_decode [B={b}, f1={f1}] bf16 plan {tuple(plan1)}: "
+          f"rescoring agreement greedy {k1[0.0]:.4f} sampled "
+          f"{k1[0.95]:.4f}; {ms1 * 1e3:.1f} us (wall per call "
+          f"{wall1 * 1e3:.1f} us), {ms1 * 1e3 / f1:.2f} us per step, "
           f"plain {pms1 * 1e3:.1f} us, bound "
           f"{b1 * 1e3:.2f} us ({by1}, {rows} W' rows)")
 
@@ -2108,7 +2112,7 @@ def main() -> int:
          "launches": launches["frame_decode"] + s5_all["frame_decode"],
          "max_abs_err": err1,
          "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
-         "library_ms": None},
+         "library_ms": None, "us_per_step": ms1 * 1e3 / f1},
         {"name": "gemm_bias", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",

@@ -5,7 +5,9 @@ Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
 
 * K1 ``frame_decode`` (``csrc/frame_decode.cu``): one bottom frame, f1
   autoregressive sample-MLP steps for every lane, Gumbel-max sampling
-  with supplied, shared-seed or per-lane-key noise.
+  with supplied, shared-seed or per-lane-key noise; bf16 weights at dim
+  1024, q_levels 256 on the wgmma kernel, float32 and every other width
+  on the CUDA-core one (``frame_plan``).
 * K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)
   (+ the lane's conditioning row)`` for every product outside the MLP,
   with int32 levels dequantized on load; bf16 weights on the split-K
@@ -42,6 +44,7 @@ epilogue adds to the tier input.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -70,10 +73,10 @@ _SIGNATURES = {
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
     "lstm_gates": ("srnn_lstm_gates",
                    [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
-    "frame_decode": ("srnn_frame_decode",
+    "frame_decode": ("srnn_frame_decode_planned",
                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _F, ctypes.c_uint64, _I64, _P, _P, _P, _I64, _I, _I, _I,
-                      _I, _I, _P]),
+                      _I, _I, _P, _P]),
 }
 
 
@@ -364,6 +367,115 @@ def lstm_gates(g, c):
 
 # ----------------------------------------------------------------- K1 --
 
+# K1's two kernels (csrc/frame_decode.cu), mirrored here so that the plan
+# can be checked on the CPU.
+FMA_CLUSTER, FMA_LANES, FMA_THREADS = 8, 8, 256   # the CUDA-core kernel
+BOX_ROWS = 128               # one TMA box of weights: 128 rows x 64
+BOX = BOX_ROWS * 64 * 2      # columns of bf16
+K1_SMEM_MAX = 231936         # dynamic shared memory of the wgmma kernel:
+                             # the H100's 227 KB less 512 bytes of static
+                             # (its mbarriers)
+K1_MAX_STAGES = 28           # ring slots the kernel has mbarriers for
+# the one shape the wgmma kernel is built for (tcd::CL, LT, HC): a tile of
+# 16 lanes on a cluster of 8 blocks of 128 columns, and the widths it
+# takes, those of every preset that generates
+K1_TC = (8, 16, 128)
+K1_TC_WIDTHS = (1024, 256)   # (dim, q_levels)
+
+
+class FramePlan(NamedTuple):
+    """How K1 decodes a frame.  ``route``: "wgmma" (bf16 at dim 1024,
+    q_levels 256: the tensor-core kernel) or "fma" (float32 and every
+    other width: the CUDA-core kernel).  A tile of ``lanes`` lanes (B
+    padded up to a multiple) is one thread-block cluster of ``cluster``
+    blocks; block r owns ``cols`` columns of W_h (and of h1, h2) and, on
+    the wgmma route, one 64-column tile of W_out over 1/``out_split`` of
+    its K (on the fma route q/cluster logit columns over all of K).
+    ``stages``: ring slots of one weight box (``BOX`` bytes) each, the
+    boxes streamed at every step; ``smem``: dynamic shared memory bytes
+    per block."""
+    route: str
+    cluster: int
+    lanes: int
+    cols: int
+    out_split: int
+    stages: int
+    smem: int
+
+
+def _fma_smem(hdim: int, q: int, f1: int, vec: int) -> int:
+    """The CUDA-core kernel's shared memory (``frame_decode.cu``'s
+    ``smem_floats``): h1 and h2, the K-slice partials, the layer slice,
+    the argmax partials and the window, float32."""
+    cl, lt = FMA_CLUSTER, FMA_LANES
+
+    def ksplit(groups):
+        return 1 if groups >= FMA_THREADS else FMA_THREADS // groups
+
+    hc, qc = hdim // cl, q // cl
+    red = max(ksplit(hc // vec) * lt * hc, ksplit(qc // vec) * lt * qc)
+    return 4 * (2 * lt * hdim + red + lt * max(hc, qc) + 2 * cl * lt
+                + lt * f1)
+
+
+def _wgmma_plan(hdim: int, q: int, f1: int) -> FramePlan:
+    """The wgmma kernel's plan at its widths (``K1_TC_WIDTHS``): as many
+    ring slots as fit beside h1, h2, the argmax partials, the noise and
+    the window (``tcd::smem_bytes``)."""
+    cluster, lanes, cols = K1_TC
+    tiles = q // 64
+    fixed = 1024 + 2 * lanes * hdim * 2 + tiles * lanes * 8 \
+        + 2 * lanes * 64 * 4 + -(-lanes * f1 * 2 // 16) * 16
+    stages = min(K1_MAX_STAGES, (K1_SMEM_MAX - fixed) // BOX)
+    return FramePlan("wgmma", cluster, lanes, cols, cluster // tiles, stages,
+                     fixed + stages * BOX)
+
+
+def frame_plan(hdim: int, q: int, f1: int,
+               w_dtype=torch.bfloat16) -> FramePlan:
+    """K1's plan: a pure function of the widths, f1 and the weight type,
+    never of the batch, so that a lane's samples are bit-equal whatever
+    the batch and whatever lanes share its tile (a pool lane equals its
+    solo stream).  bf16 weights at ``K1_TC_WIDTHS`` take the wgmma
+    kernel; float32 weights, and every other bf16 width, the CUDA-core
+    kernel.  Widths neither takes raise ValueError with the reason."""
+    if w_dtype not in _W_DTYPES:
+        raise ValueError(f"frame_plan: weight dtype {w_dtype}")
+    if hdim < 64 or q < 64 or hdim % 64 or q % 64 or f1 < 1:
+        raise ValueError(f"frame_plan: dim {hdim} and q_levels {q} must be "
+                         "multiples of 64 (8 blocks per cluster, 16-byte "
+                         f"weight loads), f1 {f1} >= 1")
+    if w_dtype == torch.bfloat16 and (hdim, q) == K1_TC_WIDTHS:
+        plan = _wgmma_plan(hdim, q, f1)
+        if plan.stages >= 4:     # else f1's window leaves too small a ring
+            return plan
+    smem = _fma_smem(hdim, q, f1, 8 if w_dtype == torch.bfloat16 else 4)
+    if smem > K1_SMEM_MAX:
+        raise ValueError(f"frame_plan: dim {hdim}, q_levels {q}, f1 {f1} "
+                         f"need {smem} bytes of shared memory per block, "
+                         f"more than the {K1_SMEM_MAX} the H100 gives")
+    return FramePlan("fma", FMA_CLUSTER, FMA_LANES, hdim // FMA_CLUSTER, 1,
+                     0, smem)
+
+
+def frame_columns(plan: FramePlan, hdim: int, q: int) -> list:
+    """What block r of a tile computes under ``plan``, in rank order: its
+    columns of W_h [start, end) and its block of W_out (columns [start,
+    end), rows [start, end))."""
+    out = []
+    for r in range(plan.cluster):
+        h = (r * plan.cols, (r + 1) * plan.cols)
+        if plan.route == "fma":
+            qc = q // plan.cluster
+            o = ((r * qc, (r + 1) * qc), (0, hdim))
+        else:
+            t, s = divmod(r, plan.out_split)
+            rows = hdim // plan.out_split
+            o = ((64 * t, 64 * t + 64), (s * rows, (s + 1) * rows))
+        out.append((h, o))
+    return out
+
+
 def frame_noise(temperature, noise, seed, pos0, lane_keys, lane_pos, b,
                 f1, q, device):
     """The [f1, B, q] noise block K1 reads, drawn in PyTorch: the supplied
@@ -432,7 +544,7 @@ def kernel_lane_keys(lane_keys, device=None) -> torch.Tensor:
 
 
 def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
-                 pos0=0, out=None, lane_keys=None, lane_pos=None):
+                 pos0=0, out=None, lane_keys=None, lane_pos=None, plan=None):
     """K1: decode one bottom frame for every lane -> int32 [B, f1].
 
     window [B, f1] int32 levels (rows may be strided); cond [B, f1*H]
@@ -444,7 +556,10 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
     (see ``noise.as_lane_keys``) by each lane's own key; step i of lane b
     is at position ``pos0 + i``, plus ``lane_pos[b]`` when a [B] tensor
     of per-lane offsets is given.  ``out``: an int32 [B, f1] view (rows
-    may be strided) to write into, else allocated."""
+    may be strided) to write into, else allocated.  ``plan``: the kernel's
+    plan, ``frame_plan(H, q, f1, dtype)`` when None (another ring depth
+    is for timing sweeps: a lane's samples stay bit-equal across batch
+    sizes under any one plan)."""
     if _on_cpu(window, cond, mw["w_fused"], lane_keys, lane_pos):
         return frame_decode_plain(window, cond, bup, mw, temperature, noise,
                                   seed, pos0, out, lane_keys, lane_pos)
@@ -463,10 +578,13 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
         _check(mw[name], name, (torch.float32,), (size,))
     if wt not in _W_DTYPES:
         raise TypeError(f"frame_decode: weight dtype {wt}")
-    if hdim % 64 or q % 64:
-        raise ValueError(f"frame_decode: dim {hdim} and q_levels {q} must "
-                         "be multiples of 64 (8 blocks per cluster, 16-byte "
-                         "weight loads)")
+    if plan is None:
+        plan = frame_plan(hdim, q, f1, wt)
+    elif plan.route == "wgmma" and wt != torch.bfloat16:
+        raise ValueError("frame_decode: the wgmma route takes bf16 weights")
+    if plan.route == "wgmma" and (cond.stride(0) % 4
+                                  or cond.data_ptr() % 16):
+        cond = cond.contiguous()     # its rows are read 16 bytes at a time
     mode = (0 if not temperature else 1 if noise is not None
             else 3 if lane_keys is not None else 2)
     if mode == 1:
@@ -492,9 +610,17 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
             float(temperature or 0.0), int(seed) & 0xFFFFFFFFFFFFFFFF,
             int(pos0), _ptr(keys), _ptr(lane_pos) if mode >= 2 else None,
             out.data_ptr(), out.stride(0), b, f1, hdim, q,
-            int(wt == torch.bfloat16), _stream(window),
-            mode="lane_keys" if mode == 3 else None)
+            int(wt == torch.bfloat16), ctypes.addressof(_plan_words(plan)),
+            _stream(window), mode="lane_keys" if mode == 3 else None)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_words(plan: FramePlan):
+    """A plan as the five ints ``srnn_frame_decode_planned`` reads (route,
+    cluster, lanes, out_split, stages), made once per plan."""
+    return (ctypes.c_int * 5)(int(plan.route == "wgmma"), plan.cluster,
+                              plan.lanes, plan.out_split, plan.stages)
 
 
 # --------------------------------------------------- composite ops --

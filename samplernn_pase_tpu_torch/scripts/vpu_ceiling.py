@@ -3,7 +3,7 @@ them on the card: the counterpart of ``scripts/vpu_ceiling.py``.
 
     python -m samplernn_pase_tpu_torch.scripts.vpu_ceiling [--smoke]
 
-K1 (``csrc/frame_decode.cu``) takes 80-84% of the device time on every
+K1 (``csrc/frame_decode.cu``) takes most of the device time on every
 generation path.  Its per-step instruction stream has two halves, timed
 here in isolation at the flagship's shapes (B=128, H=1024, q=256, f1=16,
 bf16 weights), as the reference times its megakernel's:
@@ -22,9 +22,8 @@ the real path's (the flagship's sampled generation through K1-K3, per
 step), and a summary with the envelope [max, sum] of the two halves.
 K1's real stream is not this one: K1 gathers f1 rows of W' per step where
 the TPU multiplies a one-hot window by the fused first-layer weight,
-computes its products with float32 FMAs on the CUDA cores (K9 uses the
-tensor cores), draws its noise per step inside the chain and runs the
-argmax across a cluster of 8 blocks through distributed shared memory.
+streams each block's weight columns through a ring and runs the argmax
+across a cluster of 8 blocks through distributed shared memory.
 ``--smoke`` runs the plain versions on the CPU at the flagship's shapes.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it

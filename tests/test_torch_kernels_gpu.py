@@ -285,6 +285,138 @@ def test_lstm_generate_full_matches_plain_f32(cuda, temp):
         torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
 
 
+# K1's wgmma kernel at the flagship's shape (B=128, dim 1024, q 256, f1 16,
+# bf16): rescoring (the plain version, fed the kernel's samples, picks the
+# same level) >= 0.99, the reference's bar for its bf16 kernels; the
+# window is strided as the generation loop passes it.
+def _k1_flagship(dev, b=128):
+    from samplernn_pase_tpu_torch.scripts import frame_trace as ft
+    args, modes = ft.inputs(torch)
+    window, cond, bup, mw = args
+    gen = torch.Generator().manual_seed(6)
+    noise = -torch.log(-torch.log(torch.rand(ft.F1, ft.B, ft.Q,
+                                             generator=gen))).to(dev)
+    wide = torch.zeros(ft.B, ft.F1 + 3, dtype=torch.int32, device=dev)
+    wide[:, 3:] = window
+    kws = {0: dict(temperature=0.0), 1: dict(temperature=0.9, noise=noise),
+           2: modes[2], 3: modes[3]}
+    return (wide[:, 3:], cond, bup, mw), kws
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_frame_decode_wgmma_rescores_at_flagship_shape(cuda, mode):
+    args, kws = _k1_flagship(cuda)
+    mw = args[3]
+    plan = kdec.frame_plan(1024, 256, 16, torch.bfloat16)
+    assert plan.route == "wgmma"
+    kdec.reset_launches()
+    got = kdec.frame_decode(*args, **kws[mode])
+    assert kdec.LAUNCHES["frame_decode"] == 1
+    assert mw["w_h"].dtype == torch.bfloat16
+    again = kdec.frame_decode_plain(*args, **kws[mode], forced=got)
+    assert got.min() >= 0 and got.max() < 256
+    assert (again == got).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("mode", [0, 3])
+def test_frame_decode_wgmma_rows_independent_of_batch(cuda, mode):
+    """Lane b's samples are bit-equal in B = 1, 8, 37 and 128 launches
+    with the same keys and positions (greedy, and per-lane keys): the plan
+    never reads B, and a lane's products do not depend on who shares its
+    tile."""
+    args, kws = _k1_flagship(cuda)
+    kw = kws[mode]
+    full = kdec.frame_decode(*args, **kw)
+    for lo, hi in ((5, 6), (0, 8), (37, 74), (91, 128)):
+        part = {k: (v[lo:hi] if k in ("lane_keys", "lane_pos") else v)
+                for k, v in kw.items()}
+        got = kdec.frame_decode(args[0][lo:hi], args[1][lo:hi], args[2],
+                                args[3], **part)
+        torch.testing.assert_close(got, full[lo:hi], rtol=0, atol=0)
+
+
+def _k1_inputs(dev, hdim, q, f1, b, mode):
+    gen = torch.Generator().manual_seed(hdim + q + f1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    bf = torch.bfloat16
+    mw = {"w_fused": rnd(f1 * q, hdim, scale=0.3).to(bf),
+          "b_in": rnd(hdim, scale=0.1),
+          "w_h": rnd(hdim, hdim, scale=hdim ** -0.5).to(bf),
+          "b_h": rnd(hdim, scale=0.1),
+          "w_out": rnd(hdim, q, scale=hdim ** -0.5).to(bf),
+          "b_out": rnd(q, scale=0.1)}
+    window = torch.randint(0, q, (b, f1), generator=gen,
+                           dtype=torch.int32).to(dev)
+    cond = rnd(b, f1 * hdim, scale=0.5)
+    bup = rnd(f1, hdim, scale=0.1)
+    kw = {0: dict(temperature=0.0),
+          3: dict(temperature=1.0, seed=0, pos0=40,
+                  lane_keys=torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2),
+                                          generator=gen,
+                                          dtype=torch.int32).to(dev),
+                  lane_pos=torch.arange(b, device=dev) * 3)}[mode]
+    return (window, cond, bup, mw), kw
+
+
+def _k1_rescores_and_lane_5_alone(args, kw):
+    window, cond, bup, mw = args
+    got = kdec.frame_decode(window, cond, bup, mw, **kw)
+    again = kdec.frame_decode_plain(window, cond, bup, mw, **kw,
+                                    forced=got)
+    assert (again == got).float().mean().item() >= 0.99
+    one = kdec.frame_decode(window[5:6], cond[5:6], bup, mw, **{
+        k: (v[5:6] if k in ("lane_keys", "lane_pos") else v)
+        for k, v in kw.items()})
+    torch.testing.assert_close(one[0], got[5], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f1", [1, 4])
+@pytest.mark.parametrize("mode", [0, 3])
+def test_frame_decode_wgmma_other_plans(cuda, f1, mode):
+    """The wgmma kernel at f1 = 1 and 4 (its ring and window at other
+    sizes): rescoring >= 0.99 at B=37 and lane 5 alone equal to lane 5 in
+    the batch."""
+    assert kdec.frame_plan(1024, 256, f1, torch.bfloat16).route == "wgmma"
+    _k1_rescores_and_lane_5_alone(*_k1_inputs(cuda, 1024, 256, f1, 37,
+                                              mode))
+
+
+@pytest.mark.parametrize("hdim,q", [(512, 256), (2048, 256), (1024, 512)])
+@pytest.mark.parametrize("mode", [0, 3])
+def test_frame_decode_other_bf16_widths_take_the_cuda_core_kernel(
+        cuda, hdim, q, mode):
+    """bf16 widths the wgmma kernel is not built for run the CUDA-core
+    kernel by the plan, and still rescore >= 0.99 with lane 5 alone equal
+    to lane 5 in the batch."""
+    assert kdec.frame_plan(hdim, q, 16, torch.bfloat16).route == "fma"
+    _k1_rescores_and_lane_5_alone(*_k1_inputs(cuda, hdim, q, 16, 37, mode))
+
+
+def test_frame_decode_greedy_never_reads_noise(cuda):
+    """At temperature 0 the kernel takes no noise: a NaN block changes
+    nothing, on either route."""
+    args, _ = _k1_flagship(cuda)
+    nan = torch.full((16, 128, 256), float("nan"), device=cuda)
+    want = kdec.frame_decode(*args, 0.0)
+    torch.testing.assert_close(kdec.frame_decode(*args, 0.0, nan), want,
+                               rtol=0, atol=0)
+    cfg, params = _model(cuda)
+    mw = kdec.prepare_mlp(params["mlp"], torch.float32, 4)
+    gen = torch.Generator().manual_seed(8)
+    window = torch.randint(0, 256, (6, 4), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    cond = torch.randn(6, 4 * cfg.dim, generator=gen).to(cuda)
+    got = kdec.frame_decode(window, cond, None, mw, 0.0,
+                            torch.full((4, 6, 256), float("nan"),
+                                       device=cuda))
+    torch.testing.assert_close(
+        got, kdec.frame_decode_plain(window, cond, None, mw, 0.0),
+        rtol=0, atol=0)
+
+
 def test_bf16_generation_rescores(cuda):
     from samplernn_pase_tpu_torch import generate as tgen
     cfg, params = _model(cuda, "bfloat16", (8, 4), dim=128)
