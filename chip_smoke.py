@@ -22,7 +22,8 @@ Phases (any failure ends the run with a non-zero exit):
    (the difference, the backward kernel's library_ms), with each K4/K5
    launch's device time (input product, chain, dX, dWih, dWhh) and the
    chain's us per step from scripts/seq_split.py; K6:
-   aten._thnn_fused_lstm_cell);
+   aten._thnn_fused_lstm_cell, with its route and an empty kernel on its
+   grid, the launch floor, beside it);
 3. the flagship's generation at full width (2-tier GRU, frame_sizes
    (16, 4), dim 1024, embed 256, q 256, bf16) with random weights from a
    seed and its kernel weights prepared once, B=128: generate_levels
@@ -861,17 +862,28 @@ def c4_kernel_checks(torch, dev, kdec, tgen, cfg, weights, b: int,
 
 
 def check_lstm_gates(torch, dev, kdec, b: int, hdim: int):
-    """K6 against its plain version at config 2's decode shape, timed.
+    """K6 against its plain version at config 2's decode shape, timed,
+    beside an empty kernel on the same grid (K6's floor on this card).
     Returns (err, ms, plain_ms, lib_ms, bound_ms, bound_by), or raises
     SmokeFailure."""
+    import ctypes
+
+    from samplernn_pase_tpu_torch.ops.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(4)
     g = torch.randn(b, 4 * hdim, device=dev, generator=gen)
     c = torch.randn(b, hdim, device=dev, generator=gen)
+    route = kdec.lstm_gates_route(hdim, g.stride(0), c.stride(0),
+                                  g.data_ptr() % 16 // 4,
+                                  c.data_ptr() % 16 // 4)
     err = max((a - w).abs().max().item() for a, w in zip(
         kdec.lstm_gates(g, c), kdec.lstm_gates_plain(g, c)))
     require(err <= 2e-6, f"lstm_gates: max abs err {err} > 2e-6")
     ms, wall = device_ms(torch, lambda: kdec.lstm_gates(g, c), 50)
     pms, _ = device_ms(torch, lambda: kdec.lstm_gates_plain(g, c), 50)
+    empty = _build.function("lstm_gates", "srnn_lstm_gates_floor",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor_ms, _ = device_ms(torch, lambda: empty(b, hdim, stream), 50)
     # the library's fused LSTM cell: i, f, g, o from input + hidden gates
     # (here g and zeros); timed as a yardstick, never called by the port
     zeros = torch.zeros_like(g)
@@ -882,9 +894,10 @@ def check_lstm_gates(torch, dev, kdec, b: int, hdim: int):
         g, zeros, c), 50)
     bd, by = bound(4.0 * (4 * b * hdim + b * hdim + 2 * b * hdim),
                    20.0 * b * hdim, PEAK_F32)
-    print(f"K6 lstm_gates [{b},{hdim}] err {err:.3g} (bound 2e-06) "
-          f"{ms * 1e3:.1f} us (wall per call {wall * 1e3:.1f} us), plain "
-          f"{pms * 1e3:.1f} us, _thnn_fused_lstm_cell {lms * 1e3:.1f} us "
+    print(f"K6 lstm_gates [{b},{hdim}] route {route}: err {err:.3g} (bound "
+          f"2e-06) {ms * 1e3:.2f} us (wall per call {wall * 1e3:.1f} us), "
+          f"empty kernel on its grid {floor_ms * 1e3:.2f} us, plain "
+          f"{pms * 1e3:.1f} us, _thnn_fused_lstm_cell {lms * 1e3:.2f} us "
           f"(err {lib_err:.3g}), bound {bd * 1e3:.2f} us ({by})")
     return err, ms, pms, lms, bd, by
 
@@ -1372,12 +1385,13 @@ def codec_checks(torch, dev):
 def roofline_checks(torch, dev):
     """K8 and K9 against their plain versions on the card at the
     flagship's shapes (the script's inputs): K8's samples and one-hot ring
-    equal with supplied noise and with Philox noise; K9's accumulator
-    within 2**-7 of its largest value (bf16 inputs, float32 sums taken in
-    another order, so a bf16 rounding of the hidden activations may land
-    on the other side, and every step repeats it: the inputs do not
-    change from step to step).  Timed as the script calls them: K8 with Philox noise
-    over N_STEPS steps, K9 over 16 frames, beside their plain versions,
+    equal with supplied noise and with Philox noise, in every timed call
+    too; K9's accumulator within 2**-7 of its largest value (bf16 inputs,
+    float32 sums taken in another order, so a bf16 rounding of the hidden
+    activations may land on the other side, and every step repeats it:
+    the inputs do not change from step to step).  Timed as the script
+    calls them: K8 with Philox noise over N_STEPS steps, K9 over 16
+    frames, beside their plain versions,
     their bounds and, for K9, torch.mm on the same products.  Returns
     {"vpu_tail"|"mxu_stream": {"err", "ms", "plain", "bound", "by",
     "lib"}}, or raises SmokeFailure."""
@@ -1385,14 +1399,19 @@ def roofline_checks(torch, dev):
 
     x = vc.inputs(dev)
     b, q, f1, hd = vc.B, vc.Q, vc.F1, vc.H
-    for use_prng in (False, True):
-        got, ring = vc.vpu_tail(x["logits"], x["gum"], 5, n_frames=3,
+    plan = vc.vpu_plan(q, f1)
+    # 3 frames fill a few of the plan's noise slots; 40 frames of supplied
+    # noise turn the ring of slots over several times (every slot reused,
+    # its barriers' phases flipped); the timed Philox calls below (256
+    # frames) are checked as well
+    for use_prng, n in ((False, 3), (True, 3), (False, 40)):
+        got, ring = vc.vpu_tail(x["logits"], x["gum"], 5, n_frames=n,
                                 use_prng=use_prng, return_ring=True)
         want, wring = vc.vpu_tail_plain(x["logits"], x["gum"], 5,
-                                        n_frames=3, use_prng=use_prng)
+                                        n_frames=n, use_prng=use_prng)
         require(torch.equal(got, want) and torch.equal(ring, wring),
-                f"vpu_tail (use_prng={use_prng}): samples or ring differ "
-                "from the plain version")
+                f"vpu_tail (use_prng={use_prng}, {n} frames): samples or "
+                "ring differ from the plain version")
     names = ("ebuf", "w1", "w2", "wh", "wo", "wup")
     bf = [x[k].to(torch.bfloat16) for k in names]
     got = vc.mxu_stream(*bf, n_frames=1)
@@ -1402,10 +1421,22 @@ def roofline_checks(torch, dev):
     require(err9 <= tol9, f"mxu_stream: max abs err {err9} > {tol9}")
 
     n_frames = vc.N_STEPS // f1
-    ms8, wall8 = device_ms(torch, lambda: vc.vpu_tail(
-        x["logits"], x["gum"], 9, n_frames=n_frames, use_prng=True), 3)
+    timed = []   # every timed call's (samples, ring), checked after
+
+    def k8():
+        timed.append(vc.vpu_tail(x["logits"], x["gum"], 9,
+                                 n_frames=n_frames, use_prng=True,
+                                 return_ring=True))
+
+    ms8, wall8 = device_ms(torch, k8, 3)
     pms8, _ = device_ms(torch, lambda: vc.vpu_tail_plain(
         x["logits"], x["gum"], 9, n_frames=n_frames, use_prng=True), 1)
+    want, wring = vc.vpu_tail_plain(x["logits"], x["gum"], 9,
+                                    n_frames=n_frames, use_prng=True)
+    bad = sum(not (torch.equal(got, want) and torch.equal(ring, wring))
+              for got, ring in timed)
+    require(bad == 0, f"vpu_tail: {bad} of the {len(timed)} timed calls "
+            f"({n_frames} frames, Philox) differ from the plain version")
     steps = n_frames * f1
     # bytes: logits, the samples and the ring; operations per level and
     # step: the scaled add and the compare (3), and the noise (Philox's
@@ -1437,8 +1468,10 @@ def roofline_checks(torch, dev):
     nbytes9 = (2.0 * b * f1 * q + 2.0 * (f1 * q * hd + hd * hd + hd * q
                                          + hd * f1 * hd) + 4.0 * b * q)
     bd9, by9 = bound(nbytes9, flops9, PEAK_BF16)
-    print(f"K8 vpu_tail [B={b}, q={q}, f1={f1}]: samples and ring equal to "
-          f"the plain version (supplied and Philox noise); {n_frames} frames "
+    print(f"K8 vpu_tail [B={b}, q={q}, f1={f1}] plan {tuple(plan)}: "
+          "samples and ring equal to the plain version (supplied noise over "
+          "3 and 40 frames, Philox over 3 and, in all "
+          f"{len(timed)} timed calls, {n_frames}); {n_frames} frames "
           f"with Philox noise {ms8 * 1e3:.1f} us (wall {wall8 * 1e3:.1f} us, "
           f"{ms8 * 1e3 / steps:.3f} us per step), plain {pms8 * 1e3:.1f} us, "
           f"bound {bd8 * 1e3:.2f} us ({by8})")

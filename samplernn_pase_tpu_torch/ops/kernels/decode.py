@@ -73,6 +73,8 @@ _SIGNATURES = {
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
     "lstm_gates": ("srnn_lstm_gates",
                    [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
+    "lstm_gates_vec": ("srnn_lstm_gates_vec",
+                       [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
     "frame_decode": ("srnn_frame_decode_planned",
                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _F, ctypes.c_uint64, _I64, _P, _P, _P, _I64, _I, _I, _I,
@@ -93,8 +95,8 @@ def plain_numerics():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def _launch(name, *args, mode=None):
-    err = _build.function(name, *_SIGNATURES[name])(*args)
+def _launch(name, *args, mode=None, entry=None):
+    err = _build.function(name, *_SIGNATURES[entry or name])(*args)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -348,10 +350,27 @@ def lstm_gates_plain(g, c):
     return o * torch.tanh(c_new), c_new
 
 
+LSTM_VEC = 2   # units per thread on K6's vector route (csrc: VEC)
+
+
+def lstm_gates_route(hdim: int, ldg: int, ldc: int, g_offset: int,
+                     c_offset: int) -> str:
+    """K6's route, by shape alone: "vector" (``LSTM_VEC`` consecutive
+    units per thread, 8-byte loads and stores) where ``hdim`` and both row
+    strides (``ldg``, ``ldc``, in floats) are multiples of ``LSTM_VEC``
+    and both tensors start on an 8-byte boundary (``g_offset``,
+    ``c_offset``: their first element's offset in floats from a 16-byte
+    boundary, ``data_ptr() % 16 // 4``); else "scalar" (one unit per
+    thread).  Both routes are K6, with the same arithmetic."""
+    aligned = all(v % LSTM_VEC == 0
+                  for v in (hdim, ldg, ldc, g_offset, c_offset))
+    return "vector" if aligned else "scalar"
+
+
 def lstm_gates(g, c):
     """K6: LSTM gates from g [B, 4H] (i, f, g, o; the sum xg + hg) and c
     [B, H] -> (h' [B, H], c' [B, H]), all float32; rows of g and c may be
-    strided."""
+    strided (``lstm_gates_route`` picks the kernel's instantiation)."""
     if _on_cpu(g, c):
         return lstm_gates_plain(g, c)
     b, hdim = c.shape
@@ -359,9 +378,11 @@ def lstm_gates(g, c):
     _check(c, "c", (torch.float32,), (b, hdim), rows_strided=True)
     h_out = torch.empty((b, hdim), dtype=torch.float32, device=c.device)
     c_out = torch.empty_like(h_out)
+    route = lstm_gates_route(hdim, g.stride(0), c.stride(0),
+                             g.data_ptr() % 16 // 4, c.data_ptr() % 16 // 4)
     _launch("lstm_gates", g.data_ptr(), g.stride(0), c.data_ptr(),
             c.stride(0), h_out.data_ptr(), c_out.data_ptr(), b, hdim,
-            _stream(c))
+            _stream(c), entry="lstm_gates_vec" if route == "vector" else None)
     return h_out, c_out
 
 

@@ -163,6 +163,31 @@ def test_lstm_gates_matches_plain(cuda):
         torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
 
 
+# K6's two routes: (B, H, g's and c's column offsets into wider rows,
+# the route): config 2's decode shape contiguous, strided views on 16- and
+# 8-byte boundaries, and views one or three floats off them
+@pytest.mark.parametrize("b,h,g_off,c_off,route", [
+    (128, 1024, None, None, "vector"), (37, 1000, 4000, 8, "vector"),
+    (37, 1000, 2, 2, "vector"),
+    (37, 1000, 1, 0, "scalar"), (37, 1000, 4000, 3, "scalar")])
+def test_lstm_gates_routes_match_plain(cuda, b, h, g_off, c_off, route):
+    gen = torch.Generator().manual_seed(7)
+    if g_off is None:
+        g = torch.randn(b, 4 * h, generator=gen).to(cuda)
+        c = torch.randn(b, h, generator=gen).to(cuda)
+    else:
+        g = torch.randn(b, 4 * h + 4004, generator=gen).to(cuda)[
+            :, g_off:g_off + 4 * h]
+        c = torch.randn(b, h + 12, generator=gen).to(cuda)[:, c_off:c_off + h]
+    assert kdec.lstm_gates_route(h, g.stride(0), c.stride(0),
+                                 g.data_ptr() % 16 // 4,
+                                 c.data_ptr() % 16 // 4) == route
+    kdec.reset_launches()
+    for a, w in zip(kdec.lstm_gates(g, c), kdec.lstm_gates_plain(g, c)):
+        torch.testing.assert_close(a, w, atol=2e-6, rtol=0)
+    assert kdec.LAUNCHES["lstm_gates"] == 1
+
+
 @pytest.mark.parametrize("temp,supplied", [(0.0, False), (0.9, False),
                                            (0.9, True)])
 def test_frame_decode_matches_plain_f32(cuda, temp, supplied):
@@ -715,6 +740,83 @@ def test_vpu_tail_matches_plain(cuda):
                                         n_frames=3, use_prng=use_prng)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         torch.testing.assert_close(ring, wring, rtol=0, atol=0)
+
+
+def _vpu_inputs(dev, b, q, f1, seed):
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn(b, q, generator=gen).to(dev)
+    gum = -torch.log(-torch.log(torch.rand(f1, b, q, generator=gen)
+                                .clamp(1e-7, 1 - 2 ** -24))).to(dev)
+    return logits, gum
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("f1", [1, 4, 16, 32])
+@pytest.mark.parametrize("q", [128, 256, 1024])
+def test_vpu_tail_matches_plain_over_plans(cuda, q, f1, use_prng):
+    """K8's samples and ring bit-equal to the plain version over q, f1,
+    frame counts beyond the ring's depth, and batch sizes."""
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+    for n_frames in (1, 3, 17):
+        for b in (1, 37, 128):
+            logits, gum = _vpu_inputs(cuda, b, q, f1, 10 * n_frames + b)
+            got = vc.vpu_tail(logits, gum, 11 + b, n_frames=n_frames,
+                              use_prng=use_prng, return_ring=True)
+            want = vc.vpu_tail_plain(logits, gum, 11 + b, n_frames=n_frames,
+                                     use_prng=use_prng)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+def test_vpu_tail_matches_plain_over_many_ring_turns(cuda, use_prng):
+    """The flagship's shape over the roofline script's 256 frames: the
+    ring of noise slots turns over about 21 times, every slot's barriers
+    flip phase again and again."""
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+    x = vc.inputs(cuda)
+    n_frames = vc.N_STEPS // vc.F1
+    got = vc.vpu_tail(x["logits"], x["gum"], 9, n_frames=n_frames,
+                      use_prng=use_prng, return_ring=True)
+    want = vc.vpu_tail_plain(x["logits"], x["gum"], 9, n_frames=n_frames,
+                             use_prng=use_prng)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_vpu_tail_ties_take_the_lowest_level(cuda):
+    """Equal scores everywhere give level 0; -0.0 at a lower level beats
+    +0.0 at a higher one (equal, as the compare and torch.argmax see them)
+    with every other score below both."""
+    from samplernn_pase_tpu_torch.scripts import vpu_ceiling as vc
+    b, q, f1 = 8, 256, 4
+    logits = torch.zeros(b, q, device=cuda)
+    gum = torch.zeros(f1, b, q, device=cuda)
+    got, ring = vc.vpu_tail(logits, gum, 0, n_frames=3, use_prng=False,
+                            return_ring=True)
+    assert not got.any()
+    want = vc.vpu_tail_plain(logits, gum, 0, n_frames=3, use_prng=False)
+    torch.testing.assert_close(ring, want[1], rtol=0, atol=0)
+    # pairs (lower, higher): one lane's group, two lanes, the far ends
+    pairs = [(5, 6), (5, 200), (0, 255), (130, 131), (3, 129), (64, 96),
+             (100, 101), (7, 8)]
+    logits = torch.full((b, q), -1.0)
+    gum = torch.zeros(f1, b, q)
+    for lane, (lo, hi) in enumerate(pairs):
+        logits[lane, lo] = -0.0
+        logits[lane, hi] = 0.0
+        gum[:, lane, lo] = -0.0
+    logits, gum = logits.to(cuda), gum.to(cuda)
+    assert torch.signbit(logits + vc.TEMPERATURE * gum)[0, 0, 5]
+    got, ring = vc.vpu_tail(logits, gum, 0, n_frames=2, use_prng=False,
+                            return_ring=True)
+    lows = torch.tensor([lo for lo, _ in pairs], dtype=torch.int32,
+                        device=cuda)
+    torch.testing.assert_close(got, lows[:, None].expand(b, f1), rtol=0,
+                               atol=0)
+    want = vc.vpu_tail_plain(logits, gum, 0, n_frames=2, use_prng=False)
+    torch.testing.assert_close(got, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(ring, want[1], rtol=0, atol=0)
 
 
 def test_mxu_stream_matches_plain(cuda):
