@@ -65,8 +65,9 @@ Phases (any failure ends the run with a non-zero exit):
 8. config 4 stream serving: StreamPool(n_lanes=128, T=1.0), 8 chunks of
    1,024 samples with joins, stops, slot reuse and extend_cond between
    them; exact launch counts; four lanes bit-equal to solo B=1
-   StreamingGenerators on the card; per-chunk wall time, samples/s and
-   the device's idle share;
+   StreamingGenerators on the card; the last chunk's levels through K7's
+   decode at [128, 1024], bit-equal to the plain decode, and its time;
+   per-chunk wall time, samples/s and the device's idle share;
 9. the stacked flagship (configs/c5_gen_b128.json's model with n_rnn=2
    and weight norm, built here): generate_levels greedy and sampled
    (T=0.95) at B=128, 1,024 samples, one make_generator(use_kernels=
@@ -91,7 +92,10 @@ it plus the selected row, at positions that take and skip the two-row
 bump) and at the projection of the cond rows, and K1's per-lane-key noise
 (mode 3), with lane batch independence; K2 at the stacked flagship's
 products; K7 (codec) bit for bit against its plain version on the card
-(and decode within 3 ulp of the CPU's), K8 (vpu_tail) with equal samples
+(and decode within 3 ulp of the CPU's; levels outside [0, q); views
+misaligned for 16-byte accesses), timed at [128, 16384] and [128, 1024]
+with the L2 warm and cold beside the empty kernel on its grid and a bound
+reckoned from its compiled item loop, K8 (vpu_tail) with equal samples
 and K9 (mxu_stream) within 2**-7 of its largest value, each timed beside
 its bound; and, float32 at small width, stacked generate_full against its
 plain twin and the kernel route against the plain route on a 1-tier, a
@@ -1219,13 +1223,17 @@ def c4_serving(torch, dev, exp, params, card):
     prefix, extended at chunk 2), 96-127 join at chunk 3, 16-31 stop at
     chunk 4 and restart on new streams at chunk 5.  Exact launch counts;
     lanes 0, 20, 40 and 100 bit-equal to solo B=1 StreamingGenerators with
-    their streams and keys; per-chunk wall time, samples/s and the idle
-    share.  Returns the pool's launch counts, or raises SmokeFailure."""
+    their streams and keys; the last chunk's levels through K7's decode,
+    bit-equal to the plain decode, and its time warm and cold; per-chunk
+    wall time, samples/s and the idle share.  Returns the pool's launch counts, or
+    raises SmokeFailure."""
     import numpy as np
 
     from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import codec
     from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
     from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    from samplernn_pase_tpu_torch.scripts import codec_bench
     from samplernn_pase_tpu_torch.serve import StreamPool
 
     cfg, temp = exp.model, exp.generate.temperature
@@ -1303,6 +1311,20 @@ def c4_serving(torch, dev, exp, params, card):
               f"{got.numel()} samples equal")
         require(same == 1.0, f"pool lane {lane} differs from its solo "
                 "stream")
+    # the last chunk's levels through K7's decode at [128, 1024], what
+    # StreamPool.emit_waveform decodes each chunk
+    last = outs[-1]
+    wave = codec.mu_law_decode(last, cfg.q_levels)
+    require(torch.equal(wave, codec.mu_law_decode_plain(last, cfg.q_levels)),
+            "K7 decode of the pool's last chunk differs from the plain "
+            "decode")
+    k7 = codec_bench.k7_times(
+        torch, lambda: codec.mu_law_decode(last, cfg.q_levels), "decode")
+    print(f"config 4 pool: the last chunk's levels [{n_lanes}, {chunk}] "
+          f"through K7 decode (plan "
+          f"{tuple(codec.plan_for(last, wave, cfg.q_levels, True))}): "
+          f"bit-equal to the plain decode, {k7['warm']:.3f} us per launch "
+          f"warm, {k7['cold']:.3f} us cold L2; on {card}")
     t0 = time.perf_counter()
     times = kernel_times(torch, lambda: pool.emit(chunk))
     pwall = (time.perf_counter() - t0) * 1e3
@@ -1327,12 +1349,23 @@ def codec_checks(torch, dev):
     card, bit for bit: encode over [128, 16384] uniform floats in
     [-1.2, 1.2) (2**21 of them) and every level boundary and one ulp
     either side; decode over all 256 levels, and within 3 ulp of the plain
-    version on the CPU (ROADMAP.md C).  Each timed at [128, 16384] beside
-    its plain version and its bytes bound.  Returns {"encode"|"decode":
-    {"err", "ms", "plain", "bound", "by"}}, or raises SmokeFailure."""
+    version on the CPU (ROADMAP.md C), and over levels outside [0, q);
+    both on misaligned views (rows 1 and 3 elements past a 16-byte line,
+    leading dimensions not a multiple of 4).  Each direction timed at
+    [128, 16384] (generate()'s request) and [128, 1024] (one pool chunk),
+    warm (back-to-back launches) and cold (a 128 MB buffer written between
+    launches; K7's own kernel from the profile: codec_bench.k7_times),
+    each timed result bit-equal to the plain version, beside the empty
+    kernel on its plan's grid, its plain version (warm) and its bound: the
+    larger of bytes over 3.35 TB/s and the issue and MUFU times of the
+    item loop of its plan's kernel, counted in the SASS of the library
+    just built (codec_bench.item_loop), at the SM clock read under load.
+    Returns {"encode"|"decode": {"err", "ms" (cold, at [128, 16384]),
+    "plain", "bound", "by"}}, or raises SmokeFailure."""
     import numpy as np
 
-    from samplernn_pase_tpu_torch.ops.kernels import codec
+    from samplernn_pase_tpu_torch.ops.kernels import _build, codec
+    from samplernn_pase_tpu_torch.scripts import codec_bench as cb
 
     gen = torch.Generator(device=dev).manual_seed(12)
     x = torch.rand(BATCH, 16384, device=dev, generator=gen) * 2.4 - 1.2
@@ -1344,7 +1377,11 @@ def codec_checks(torch, dev):
     edges = np.concatenate([np.nextafter(xb, np.float32(-2)), xb,
                             np.nextafter(xb, np.float32(2))])
     edges = torch.from_numpy(edges[None]).to(dev)
-    for name, inp in (("random", x), ("level boundaries", edges)):
+    wide = torch.rand(BATCH, 16387, device=dev, generator=gen) * 2.4 - 1.2
+    for name, inp in (("random", x), ("level boundaries", edges),
+                      ("rows 1 element past a 16-byte line, ld 16387",
+                       wide[:, 1:16385]),
+                      ("rows 3 past, 1023 columns", wide[:, 3:1026])):
         got = codec.mu_law_encode(inp)
         want = codec.mu_law_encode_plain(inp)
         require(torch.equal(got, want),
@@ -1359,26 +1396,57 @@ def codec_checks(torch, dev):
         levels.cpu()).view(torch.int32).long()).abs().max().item()
     require(ulps <= 3, f"codec decode: {ulps} ulp from the CPU plain "
             "version (bound 3)")
+    outside = torch.tensor([[-2 ** 31, -1, 256, 263, 2 ** 31 - 1]],
+                           dtype=torch.int32, device=dev)
+    lwide = torch.randint(-3, 260, (BATCH, 16387), device=dev, generator=gen,
+                          dtype=torch.int32)
+    for name, inp in (("levels outside [0, 256)", outside),
+                      ("rows 1 element past a 16-byte line, ld 16387",
+                       lwide[:, 1:16385]),
+                      ("rows 3 past, 1023 columns", lwide[:, 3:1026])):
+        require(torch.equal(codec.mu_law_decode(inp),
+                            codec.mu_law_decode_plain(inp)),
+                f"codec decode ({name}) differs from the plain version on "
+                "the card")
     lv = torch.randint(0, 256, (BATCH, 16384), device=dev, generator=gen,
                        dtype=torch.int32)
-    nbytes = 8.0 * x.numel()          # 4 bytes read and 4 written each
+    listing = cb.sass(_build._lib_path("codec"))
+    mhz = cb.sm_clock_mhz(torch, lambda: codec.mu_law_encode(x))
     out = {}
     for name, fn, plain, inp in (
             ("encode", codec.mu_law_encode, codec.mu_law_encode_plain, x),
             ("decode", codec.mu_law_decode, codec.mu_law_decode_plain, lv)):
-        ms, wall = device_ms(torch, lambda: fn(inp), 50)
+        for cols in (16384, 1024):
+            a = inp[:, :cols].contiguous()
+            res = fn(a)
+            require(torch.equal(res, plain(a)),
+                    f"codec {name} [{BATCH}, {cols}] differs from the "
+                    "plain version on the card")
+            plan = codec.plan_for(a, res, 256, name == "decode")
+            t = cb.k7_times(torch, lambda: fn(a), name,
+                            (plan.blocks, 1, plan.threads))
+            loop = cb.item_loop(listing, name, plan)
+            bd, by, three = cb.k7_bound_us(a.numel(), loop, mhz)
+            print(f"K7 codec {name} [{BATCH}, {cols}] plan {tuple(plan)}: "
+                  f"warm {t['warm']:.3f} us, cold L2 {t['cold']:.3f} us, "
+                  f"empty kernel on its grid {t['floor']:.3f} us; bound "
+                  f"{bd:.3f} us ({by}; bytes {three['bytes']:.3f}, issue "
+                  f"{three['issue']:.3f}, MUFU {three['mufu']:.3f}: "
+                  f"{loop[0]:.1f} instructions and {loop[1]:.2f} MUFU an "
+                  f"element at {mhz:.0f} MHz)")
+            if cols == 16384:
+                ms, bound, by16 = t["cold"] / 1e3, bd / 1e3, by
         pms, _ = device_ms(torch, lambda: plain(inp), 20)
-        # elementwise arithmetic, two transcendental functions of about 20
-        # operations each: far below the float32 rate
-        bd, by = bound(nbytes, 50.0 * x.numel(), PEAK_F32)
-        out[name] = {"err": 0.0, "ms": ms, "plain": pms, "bound": bd,
-                     "by": by}
-        what = ("2**21 floats and the 765 boundary values" if name == "encode"
-                else f"all 256 levels; {ulps} ulp from the CPU's")
+        out[name] = {"err": 0.0, "ms": ms, "plain": pms, "bound": bound,
+                     "by": by16}
+        what = ("2**21 floats, the 765 boundary values and 2 misaligned "
+                "views" if name == "encode" else
+                f"all 256 levels ({ulps} ulp from the CPU's), 5 outside "
+                "[0, 256) and 2 misaligned views")
         print(f"K7 codec {name} [{BATCH}, 16384]: bit-equal to the plain "
-              f"version on the card ({what}); {ms * 1e3:.1f} us (wall per "
-              f"call {wall * 1e3:.1f} us), plain {pms * 1e3:.1f} us, bound "
-              f"{bd * 1e3:.2f} us ({by})")
+              f"version on the card ({what}); {ms * 1e3:.2f} us cold L2, "
+              f"plain {pms * 1e3:.1f} us warm, bound {bound * 1e3:.2f} us "
+              f"({by16})")
     return out
 
 

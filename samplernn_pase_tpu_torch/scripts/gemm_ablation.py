@@ -36,10 +36,12 @@ ROWS, RATE = 4, 160            # config 4's conditioning rows per call, rate
 REPS = 50
 
 
-def device_us(fn, reps: int = REPS, tries: int = 3) -> float:
+def device_us(fn, reps: int = REPS, tries: int = 3,
+              key: str | None = None) -> float:
     """Summed device time of the kernels ``fn`` launches, per call (us),
-    from torch.profiler over ``reps`` calls after one warm call.  A trace
-    with no device time in it is taken again, up to ``tries`` times, and
+    from torch.profiler over ``reps`` calls after one warm call; with
+    ``key``, of the kernels whose name holds it only.  A trace with no
+    such device time in it is taken again, up to ``tries`` times, and
     then raises RuntimeError: a dropped trace is never read as 0 us."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -51,13 +53,16 @@ def device_us(fn, reps: int = REPS, tries: int = 3) -> float:
             torch.cuda.synchronize()
         total = 0.0
         for e in prof.key_averages():
+            if key is not None and key not in e.key:
+                continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             total += max(us, 0.0)
         if total > 0:
             return total / reps
-    raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
+    raise RuntimeError(f"torch.profiler recorded no device time"
+                       f"{'' if key is None else ' in ' + key} in {tries} "
                        "traces")
 
 

@@ -78,3 +78,35 @@ def test_wrappers_on_cpu_and_decode_waveform():
     torch.testing.assert_close(tgen.decode_waveform(view, lin),
                                tmulaw.linear_dequantize(view), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("q_levels", [256, 1024])
+def test_plain_decode_of_levels_outside_the_range(q_levels):
+    """Levels no encode makes still get a value from the plain decode (K7
+    takes the formula for them): within 3 ulp of the reference's, and the
+    same infinity where the reference's overflows."""
+    lv = np.array([-2 ** 31, -1, q_levels, q_levels + 7, 2 ** 31 - 1],
+                  np.int32)
+    want = np.asarray(jmulaw.mu_law_decode(jnp.asarray(lv), q_levels))
+    got = kcodec.mu_law_decode(torch.from_numpy(lv[None]),
+                               q_levels).numpy()[0]
+    inf = np.isinf(want)
+    assert inf.any() and (np.isinf(got) == inf).all()
+    np.testing.assert_array_equal(got[inf], want[inf])
+    np.testing.assert_array_max_ulp(got[~inf], want[~inf], maxulp=3)
+
+
+@pytest.mark.parametrize("q_levels", [256, 1024])
+def test_plain_encode_of_edge_values(q_levels):
+    """Signed zeros, +-1, infinities, subnormals and |x| > 1 encode to the
+    reference's levels exactly."""
+    tiny = np.finfo(np.float32).tiny
+    sub = np.array([tiny / 2, tiny / 3, np.float32(1e-45), tiny * 0.999],
+                   np.float32)
+    x = np.concatenate([
+        np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, 1.0000001,
+                  -1.0000001, 1.5, -7.0, 3e38, -3e38], np.float32),
+        sub, -sub]).astype(np.float32)
+    want = np.asarray(jmulaw.mu_law_encode(jnp.asarray(x), q_levels))
+    got = kcodec.mu_law_encode(torch.from_numpy(x[None]), q_levels).numpy()
+    np.testing.assert_array_equal(got[0], want)

@@ -728,6 +728,102 @@ def test_codec_matches_plain_bit_exact(cuda):
     assert codec.LAUNCHES == {"codec_encode": 2, "codec_decode": 3}
 
 
+def _levels_outside(q):
+    """Levels no encode makes, which the plain decode still gives a value."""
+    return [-2 ** 31, -1, q, q + 7, 2 ** 31 - 1]
+
+
+def test_codec_every_float32_and_level(cuda):
+    """K7 encode over all 2**32 float32 bit patterns (chunks of 2**26),
+    bit-equal to the plain version for every pattern that is not a NaN
+    (NaN inputs are counted and printed, not required); decode over every
+    level for q in 2, 256, 1024, the table's cap and one above it (the
+    formula route), plus levels outside [0, q), bit-equal."""
+    from samplernn_pase_tpu_torch.ops.kernels import codec
+    chunk = 2 ** 26
+    nan_diff = 0
+    for lo in range(-2 ** 31, 2 ** 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32,
+                         device=cuda).view(torch.float32).view(1024, -1)
+        got = codec.mu_law_encode(x)
+        want = codec.mu_law_encode_plain(x)
+        nan = torch.isnan(x)
+        differ = (got != want) & ~nan
+        assert not differ.any(), (
+            f"chunk at {lo}: {int(differ.sum())} non-NaN patterns differ, "
+            f"first {x[differ][:4].tolist()}")
+        nan_diff += int(((got != want) & nan).sum())
+    print(f"encode: NaN patterns whose levels differ from the plain "
+          f"version's: {nan_diff} of {2 * (2 ** 23 - 1)}")
+    for q in (2, 256, 1024, codec.TABLE_CAP, codec.TABLE_CAP + 1):
+        lv = torch.tensor(list(range(q)) + _levels_outside(q),
+                          dtype=torch.int32, device=cuda)[None]
+        assert codec.plan_for(lv, torch.empty_like(lv, dtype=torch.float32),
+                              q, True).table == (q <= codec.TABLE_CAP)
+        torch.testing.assert_close(codec.mu_law_decode(lv, q),
+                                   codec.mu_law_decode_plain(lv, q),
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("rows,cols,ld", [(37, 1, 6), (5, 3, 7),
+                                          (9, 5, 9), (128, 1023, 1027),
+                                          (3, 16384, 16387), (4, 1024, 1024),
+                                          (128, 8192, 8195),
+                                          (64, 16384, 16384)])
+def test_codec_misaligned_views_match_plain(cuda, offset, rows, cols, ld):
+    """K7 on views whose rows start 0-3 elements past a 16-byte line, with
+    leading dimensions that are and are not multiples of 4 (the scalar
+    route, or 16-byte accesses with each row's scalar head and tail), and
+    on a contiguous copy; levels include ones outside [0, q)."""
+    from samplernn_pase_tpu_torch.ops.kernels import codec
+    gen = torch.Generator().manual_seed(rows * 7 + offset)
+    buf = (torch.rand(rows, ld + offset, generator=gen) * 2.4 - 1.2).to(cuda)
+    lbuf = torch.randint(-3, 260, (rows, ld + offset), generator=gen,
+                         dtype=torch.int32).to(cuda)
+    for x, lv in ((buf[:, offset:offset + cols],
+                   lbuf[:, offset:offset + cols]),
+                  (buf[:, offset:offset + cols].contiguous(),
+                   lbuf[:, offset:offset + cols].contiguous())):
+        torch.testing.assert_close(codec.mu_law_encode(x),
+                                   codec.mu_law_encode_plain(x),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(codec.mu_law_decode(lv),
+                                   codec.mu_law_decode_plain(lv),
+                                   rtol=0, atol=0)
+
+
+def test_codec_refuses_a_plan_that_does_not_fit(cuda):
+    """srnn_mu_law_encode / _decode launch nothing and return
+    cudaErrorInvalidValue (1) for a plan that does not fit the call:
+    16-byte accesses on rows whose input and output disagree mod 16
+    bytes, other thread counts, no blocks, a (vec, vpt) pair that is not
+    built, a table above the cap or for encode; the wrapper's own plan
+    launches."""
+    import ctypes
+    from samplernn_pase_tpu_torch.ops.kernels import _build, codec
+    buf = torch.zeros(8, 1028, device=cuda)
+    lbuf = torch.zeros(8, 1028, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for symbol, x, out in (("srnn_mu_law_encode", buf[:, 1:1025], lbuf),
+                           ("srnn_mu_law_decode", lbuf[:, 1:1025], buf)):
+        fn = _build.function("codec", symbol, codec._ARGS)
+        good = codec.plan_for(x, out, 256, symbol.endswith("decode"))
+        assert good.vec == 1
+        for plan, q in ((good._replace(vec=4), 256),
+                        (good._replace(threads=128), 256),
+                        (good._replace(blocks=0), 256),
+                        (good._replace(vpt=2), 256),
+                        (good._replace(vpt=3), 256),
+                        (good._replace(table=True), codec.TABLE_CAP + 1)):
+            args = (ctypes.c_int * 5)(*map(int, plan))
+            assert fn(x.data_ptr(), x.stride(0), out.data_ptr(),
+                      out.stride(0), 8, 1024, q, args, stream) == 1, plan
+        args = (ctypes.c_int * 5)(*map(int, good))
+        assert fn(x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+                  8, 1024, 256, args, stream) == 0
+
+
 # ---------------------------------------------- K8, K9 roofline kernels --
 
 def test_vpu_tail_matches_plain(cuda):
