@@ -83,7 +83,33 @@ Phases (any failure ends the run with a non-zero exit):
 11. the roofline entry point (samplernn_pase_tpu_torch.scripts.
    vpu_ceiling), K8's and K9's own path: K8, K9 and the flagship's
    generation timed per step;
-12. a {"kernels": [...]} line, then the last line
+12. config 4 through Trainer.run (the model and the train section of
+   configs/c4_tts_conditioned.json: B=32, seq_len 1280, steps_per_call 8,
+   bf16) for 2 epochs on a corpus written to disk from a seed (80 wavs of
+   sines by synthetic_corpus's recipe with ragged tails, a .npy of random
+   cond rows per wav, read back by WavCorpus.from_folder through the
+   native library: 20 steps an epoch, 2 groups and a 4-step tail; about 6
+   wavs held out), with LoggerPlugin, ValidationPlugin (every 16 steps
+   and at each epoch's end), CheckpointPlugin (every 8 steps) and a
+   GeneratorPlugin that fires once (2 conditioned sequences of 16,000
+   samples at T=1.0 on the kernel route, read back through audio_io).
+   K4 forward launches twice per train and val step and backward twice
+   per train step, the generation's K1/K2/K3/K7 launches are exact, the
+   NLL is finite and falls, the val lines are held-out, the retention
+   keeps the latest 3 and the best, and the data never left the native
+   route; steps 10-12 are traced (device busy, idle share); step ms,
+   bottom frames/s, peak memory and the host's time by part are
+   printed.  A fresh Trainer then restores the second epoch's mid-epoch
+   checkpoint and runs to the epoch's end: its steps, batch indices,
+   NLLs, parameters, hiddens and Adam moments equal the uninterrupted
+   run's bit for bit;
+13. the quality smoke's full mode (python -m samplernn_pase_tpu_torch.
+   scripts.quality_smoke: dim 512, bf16, two speakers), which must print
+   OK;
+14. the bench twins, python -m samplernn_pase_tpu_torch.bench and python
+   -m samplernn_pase_tpu_torch.scripts.bench_train, each in its own
+   process: their JSON lines, with a positive value and no skip;
+15. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Phase 2 also holds config 4's kernel modes against their plain versions:
@@ -1778,6 +1804,281 @@ def roofline_path(torch, dev):
     return launches, records
 
 
+C4_CHUNKS_PER_UTT = 10  # TBPTT chunks per config-4 corpus utterance
+C4_UTTS = 80            # utterances of the config-4 corpus (about 8 held out)
+C4_GEN = 16_000         # samples per GeneratorPlugin sequence
+
+
+def c4_corpus(dirs, cfg, seq_len: int, seed: int):
+    """Phase 12's corpus, written to disk: C4_UTTS wavs of sines by
+    synthetic_corpus's recipe (a random f0 and 4 harmonics of random
+    amplitude and phase, peak 0.8), each with a ragged tail inside its
+    last of C4_CHUNKS_PER_UTT chunks, and one .npy of random float32
+    conditioning rows [ceil(len / cond_rate), cond_dim] per wav."""
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.ops.audio_io import write_wav
+    wavs, conds = dirs
+    wavs.mkdir(parents=True)
+    conds.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for i in range(C4_UTTS):
+        n = (C4_CHUNKS_PER_UTT - 1) * seq_len + int(rng.integers(
+            seq_len // 4, seq_len - seq_len // 4))
+        t = np.arange(n) / 16_000
+        f0 = rng.uniform(80, 400)
+        x = sum(rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * f0 * (k + 1) * t
+                                               + rng.uniform(0, 2 * np.pi))
+                for k in range(4))
+        write_wav(wavs / f"utt{i:05d}.wav", 0.8 * x / np.max(np.abs(x)))
+        np.save(conds / f"utt{i:05d}.npy", rng.normal(size=(
+            -(-n // cfg.cond_rate), cfg.cond_dim)).astype(np.float32))
+
+
+def c4_trainer(torch, dev, exp, params, card):
+    """Phase 12: config 4's training through Trainer.run for 2 epochs with
+    its plugins on a corpus read from disk, then a resume from the
+    second epoch's mid-epoch checkpoint equal to the uninterrupted run.
+    Returns the phase's K4 launch counts, or raises SmokeFailure."""
+    import dataclasses
+    import math
+    import shutil
+
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.data import native_loader
+    from samplernn_pase_tpu_torch.data.dataset import WavCorpus
+    from samplernn_pase_tpu_torch.ops import audio_io
+    from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    from samplernn_pase_tpu_torch.train import trainer as tr
+    from samplernn_pase_tpu_torch.train.checkpoint import CheckpointManager
+    from samplernn_pase_tpu_torch.train.metrics import MetricsWriter
+    from samplernn_pase_tpu_torch.tree import tree_leaves
+
+    cfg = exp.model
+    k_call = cadence = exp.train.steps_per_call
+    work = ROOT / "build" / "c4_trainer"
+    shutil.rmtree(work, ignore_errors=True)
+    tcfg = dataclasses.replace(exp.train, epochs=2,
+                               profile_dir=str(work / "profile"))
+    t0 = time.perf_counter()
+    c4_corpus((work / "wavs", work / "cond"), cfg, tcfg.seq_len, 41)
+    native_loader.reset_routes()
+    corpus = WavCorpus.from_folder(work / "wavs", cond_dir=work / "cond")
+    t_data = time.perf_counter() - t0
+    steps = len(corpus.batcher("train", tcfg.batch_size, tcfg.seq_len,
+                               cfg.lookback, cfg.cond_rate))
+    val_steps = len(corpus.batcher("val", tcfg.batch_size, tcfg.seq_len,
+                                   cfg.lookback, cfg.cond_rate))
+    total = 2 * steps
+    print(f"config 4 corpus: {C4_UTTS} wavs and cond rows written and read "
+          f"back in {t_data:.1f} s ({len(corpus.train_idx)} train, "
+          f"{len(corpus.val_idx)} held out); an epoch is {steps} steps "
+          f"of B={tcfg.batch_size}, seq_len {tcfg.seq_len} "
+          f"(groups of {k_call}), validation {val_steps} steps")
+    require(corpus.has_val and steps >= 2 * k_call and steps % k_call
+            and val_steps % k_call, "config 4 corpus: the epoch needs 2 "
+            "full groups and a tail, and a held-out split with a tail")
+    gen_cond = np.random.default_rng(42).normal(
+        size=(2, -(-C4_GEN // cfg.cond_rate), cfg.cond_dim)).astype(
+        np.float32)
+    writer = MetricsWriter(work / "metrics.jsonl", echo=False)
+    mgr = CheckpointManager(work / "ckpt", max_to_keep=tcfg.max_to_keep)
+    recs = []
+
+    class Cap(tr.Plugin):
+        def on_step(self, trainer, step, metrics):
+            recs.append((step, trainer.batch_idx, metrics["nll_bits"],
+                         metrics["samples_per_sec"]))
+
+    # validation every 2 groups and at each epoch's end; one generation
+    val_every, gen_at = 2 * cadence, 3 * cadence
+    plugins = [tr.LoggerPlugin(writer, every=1),
+               tr.ValidationPlugin(writer, every_steps=val_every),
+               tr.CheckpointPlugin(mgr, every_steps=cadence),
+               tr.GeneratorPlugin(work / "samples", every_steps=gen_at,
+                                  n_seqs=2, length=C4_GEN, temperature=1.0,
+                                  cond=gen_cond),
+               Cap()]
+    trainer = tr.Trainer(cfg, tcfg, corpus, plugins=plugins, params=params,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt.reset_launches()
+    kdec.reset_launches()
+    kcodec.reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    writer.close()
+    peak = torch.cuda.max_memory_allocated()
+    seq = dict(rt.LAUNCHES)
+    dec = {k: v for k, v in kdec.LAUNCHES.items() if v}
+    n_val = (total // val_every + 2) * val_steps
+    print(f"config 4 Trainer.run launches: {seq}; decode kernels {dec}; "
+          f"codec {dict(kcodec.LAUNCHES)}; data routes "
+          f"{dict(native_loader.ROUTES)}")
+    require(seq == {"gru_sequence_fwd": 2 * (total + n_val),
+                    "gru_sequence_bwd": 2 * total,
+                    "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0},
+            f"K4 launches {seq}: expected 2 forward per train and val step "
+            f"({total} and {n_val}) and 2 backward per train step")
+    want = decode_launches(cfg, C4_GEN)
+    want["gemm_bias"] += cfg.frame_sizes[0]    # the request's MLP fold
+    require(dict(kdec.LAUNCHES) == want
+            and kcodec.LAUNCHES["codec_decode"] == 1,
+            "GeneratorPlugin: one conditioned request of "
+            f"{C4_GEN} samples through K1/K2/K3 and K7's decode expected")
+    require(native_loader.ROUTES["numpy"] == 0
+            and native_loader.ROUTES["native"] >= C4_UTTS + total,
+            "the data path left the native route")
+    require([r[0] for r in recs] == list(range(total)),
+            "steps not numbered 0..n-1")
+    nlls = [r[2] for r in recs]
+    require(all(math.isfinite(v) for v in nlls), "non-finite NLL")
+    first, last = (sum(nlls[:k_call]) / k_call,
+                   sum(nlls[-k_call:]) / k_call)
+    print(f"config 4 train NLL (bits), mean of the first and last "
+          f"{k_call} steps: {first:.4f} -> {last:.4f}; per step "
+          + ", ".join(f"{v:.3f}" for v in nlls))
+    require(last < first, "the NLL did not fall")
+    lines = [json.loads(s) for s in
+             (work / "metrics.jsonl").read_text().splitlines()]
+    val = [d for d in lines if d.get("split") == "val"]
+    require(len(val) == n_val // val_steps
+            and all(math.isfinite(d["nll_bits"])
+                    and "val_is_train_fallback" not in d for d in val),
+            f"expected {n_val // val_steps} held-out val lines, got {val}")
+    kept, best = mgr.all_steps(), mgr.best_step(strict=True)
+    latest = [total - 2 * cadence, total - cadence, total][
+        -tcfg.max_to_keep:]
+    require(kept == sorted(set(latest) | {best}),
+            f"checkpoints {kept}: expected the latest {latest} and the "
+            f"best by val NLL ({best})")
+    wavs = sorted((work / "samples").glob("*.wav"))
+    require([w.name for w in wavs] == [f"step{gen_at:08d}_seq{i}.wav"
+                                       for i in range(2)],
+            f"GeneratorPlugin wrote {[w.name for w in wavs]}")
+    for w in wavs:
+        x, sr = audio_io.read_wav(w)
+        require(sr == 16_000 and x.shape == (C4_GEN,)
+                and np.isfinite(x).all() and np.abs(x).max() <= 1.0,
+                f"{w.name}: {x.shape} at {sr} Hz")
+    where = [f"step {d['step']}" if "step" in d
+             else f"end of epoch {d['epoch']}" for d in val]
+    print("config 4 val NLL (bits): " + ", ".join(
+        f"{d['nll_bits']:.4f} ({w})" for d, w in zip(val, where))
+        + f"; checkpoints {kept} (best {best}); GeneratorPlugin wavs "
+        f"{[w.name for w in wavs]} read back, 2 x {C4_GEN} samples")
+    # a step's wall time (launch to NLL read, per group): the second
+    # epoch's full groups, warm and unprofiled; the first group (warm-up)
+    # and the traced one (steps 8-15, profiler on) beside them
+    b, t = tcfg.batch_size, tcfg.seq_len
+
+    def ms(rs):
+        return sum(b * t / r[3] * 1e3 for r in rs) / len(rs)
+
+    step_ms = ms(recs[steps:steps + 2 * k_call])
+    prof = trainer.profile
+    busy = sum(e.self_device_time_total for e in prof.prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    host = trainer.host_s
+    print(f"config 4 Trainer.run, B={b}, seq_len {t}, steps_per_call "
+          f"{k_call}: {step_ms:.2f} ms per step over the second epoch's "
+          f"full groups ({b * t / cfg.frame_sizes[0] / step_ms * 1e3:,.0f}"
+          f" bottom frames/s; first group, warm-up, "
+          f"{ms(recs[:k_call]):.2f}; the tail, one step a call, "
+          f"{ms(recs[total - steps % k_call:]):.2f}); traced group "
+          f"(steps {k_call}-{2 * k_call - 1}, profiler on): device busy "
+          f"{busy:.1f} ms of {prof.wall_s * 1e3:.1f} ms, idle share "
+          f"{1 - busy / (prof.wall_s * 1e3):.3f} (profiler on), "
+          f"{1 - busy / k_call / step_ms:.3f} of the unprofiled steps; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; host seconds of the "
+          f"{wall:.1f} s run: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+          + f" (staging {host['stage'] / wall:.4f} of the run); on {card}")
+    require(busy > 0 and (work / "profile" / "trace.json").exists(),
+            "the trace of steps 10-12 recorded no device time")
+    # resume: a fresh trainer from the second epoch's mid-epoch
+    # checkpoint, to the end of that epoch
+    at = total - 2 * cadence
+    cursor = mgr.restore(at)["cursor"]
+    resumed = []
+
+    class Cap2(tr.Plugin):
+        def on_step(self, trainer, step, metrics):
+            resumed.append((step, trainer.batch_idx, metrics["nll_bits"]))
+
+    t2 = tr.Trainer(cfg, dataclasses.replace(tcfg, profile_dir=""),
+                    corpus, plugins=[Cap2()], params=params, device=dev)
+    require(t2.restore(mgr, step=at), "no checkpoint to resume from")
+    t2.run()
+    torch.cuda.synchronize()
+    nxt = int(cursor[2])
+    require(int(cursor[0]) == 1 and resumed and resumed[0][0] == nxt
+            and (nxt - steps) == int(cursor[1]) + 1,
+            f"resume: first step {resumed[:1]}, cursor {cursor.tolist()}")
+    require([r[:2] for r in resumed] == [r[:2] for r in recs[nxt:]],
+            "resume: step numbering or batch indices differ from the "
+            "uninterrupted run")
+    diffs = {}
+    for what, got, want in (
+            ("params", tree_leaves(t2.params), tree_leaves(trainer.params)),
+            ("hiddens", list(t2.hiddens), list(trainer.hiddens)),
+            ("adam", tree_leaves(t2.opt_state["mu"])
+             + tree_leaves(t2.opt_state["nu"]),
+             tree_leaves(trainer.opt_state["mu"])
+             + tree_leaves(trainer.opt_state["nu"]))):
+        diffs[what] = max((a.float() - w.float()).abs().max().item()
+                          for a, w in zip(got, want))
+    nll_diff = max(abs(a[2] - b[2]) for a, b in zip(resumed, recs[nxt:]))
+    print(f"config 4 resume from checkpoint {at} (cursor "
+          f"{cursor.tolist()}): steps {resumed[0][0]}-{resumed[-1][0]}; "
+          f"max abs difference from the uninterrupted run: NLL {nll_diff}, "
+          + ", ".join(f"{k} {v}" for k, v in diffs.items()))
+    require(nll_diff == 0 and not any(diffs.values()),
+            "the resumed run differs from the uninterrupted run")
+    shutil.rmtree(work, ignore_errors=True)
+    return seq
+
+
+def run_module(module: str, args=(), timeout: int = 600) -> list[str]:
+    """``python -m module args`` from the repo root, as a user runs it:
+    its stdout lines, or SmokeFailure on a non-zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    lines = res.stdout.strip().splitlines()
+    require(res.returncode == 0, f"{module} exited {res.returncode}: "
+            + "\n".join((lines + res.stderr.strip().splitlines())[-15:]))
+    print(f"{module} {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def entry_points(card):
+    """Phases 13-14: the quality smoke's full mode and the two bench
+    twins, each in its own process on the card."""
+    lines = run_module("samplernn_pase_tpu_torch.scripts.quality_smoke")
+    for line in lines:
+        print(f"  {line}")
+    require("quality smoke OK" in lines,
+            "the quality smoke did not print OK")
+    out = {}
+    for module in ("samplernn_pase_tpu_torch.bench",
+                   "samplernn_pase_tpu_torch.scripts.bench_train"):
+        rec = json.loads(run_module(module)[-1])
+        print(json.dumps(rec))
+        require("skipped" not in rec and rec.get("value", 0) > 0,
+                f"{module}: {rec}")
+        out[module] = rec
+    print(f"bench twins on {card}: " + "; ".join(
+        f"{r['metric']} {r['value']:,}" for r in out.values()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2194,7 +2495,20 @@ def main() -> int:
     print(f"phase 11 (roofline entry point): {time.perf_counter() - t0:.1f} s")
     s5_all = add_counts(s5_launches, s5_pool)
 
-    # ---- 12. the result lines ----
+    # ---- 12-14. config 4 through Trainer.run; the measured entry points
+    t0 = time.perf_counter()
+    try:
+        c4_trainer(torch, dev, exp4, params4, card)
+        print(f"phase 12 (config 4 through Trainer.run, resume): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entry_points(card)
+    except (SmokeFailure, subprocess.TimeoutExpired) as err:
+        return fail(str(err))
+    print(f"phases 13-14 (quality smoke, bench twins): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the result lines ----
     # K2 over the decode paths, each case weighted by its launches there
     k2_runs = {"flagship": launches["gemm_bias"],
                "c2_3tier_lstm": c2_launches["gemm_bias"],

@@ -137,14 +137,13 @@ class TrainConfig:
     warmup_steps: int = 0
     decay_steps: int = 100_000
     grad_clip: float = 1.0
-    steps_per_call: int = 1        # TBPTT chunks trained per device
-                                   # dispatch: >1 stages K batches and
-                                   # runs them in ONE jitted lax.scan,
-                                   # amortizing host<->device sync (the
-                                   # dominant per-step overhead on
-                                   # remote/tunnel-attached hosts)
+    steps_per_call: int = 1        # TBPTT chunks per Trainer group: >1
+                                   # stages K batches on the device in one
+                                   # copy, runs them as K steps in one
+                                   # call and reads their NLLs in one host
+                                   # sync
     shuffle: bool = False          # permute utterance->lane per epoch
-    profile_dir: str = ""          # jax.profiler trace of steps 10-12
+    profile_dir: str = ""          # torch.profiler trace of steps 10-12
     epochs: int = 10
     seed: int = 0
     sample_rate: int = 16_000

@@ -1,2 +1,3 @@
-"""Elementwise codecs, weight init and weight norm; ``kernels`` holds the
-hand-written CUDA kernels and their plain PyTorch versions."""
+"""Elementwise codecs, weight init and weight norm, framing and the TBPTT
+batcher, and audio I/O; ``kernels`` holds the hand-written CUDA kernels
+and their plain PyTorch versions."""

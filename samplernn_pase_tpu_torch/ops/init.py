@@ -1,5 +1,5 @@
 """Weight initialization: LeCun-uniform projections, orthogonal recurrent
-blocks, uniform embeddings.  Each function draws from an explicit
+blocks, uniform embeddings, zero biases.  Each function draws from an explicit
 ``torch.Generator`` (CPU), so a seed gives the same weights on every
 device; the caller moves them.  The numbers differ from ``jax.random``'s
 for the same seed: cross-framework tests carry JAX weights over through
@@ -38,3 +38,7 @@ def uniform(gen: torch.Generator, shape, scale: float,
             dtype=torch.float32) -> torch.Tensor:
     u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
     return (u * (2.0 * scale) - scale).to(dtype)
+
+
+def zeros(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype)

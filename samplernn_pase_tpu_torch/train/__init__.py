@@ -1,2 +1,3 @@
-"""Training: the optimizer and the TBPTT step functions, mirroring
+"""Training: the optimizer, the TBPTT step functions, the Trainer loop
+with its plugins, checkpoints and metrics, mirroring
 ``samplernn_pase_tpu.train``."""

@@ -153,7 +153,9 @@ def test_params_from_jax_round_trips(weight_norm):
 
 def test_port_imports_no_jax():
     """Import every module of the port in a fresh interpreter: neither jax
-    nor the JAX package may be loaded."""
+    nor the JAX package may be loaded, and nothing outside torch, numpy
+    and the standard library (scipy in particular: the port reads, writes
+    and resamples audio without it)."""
     pkg = ROOT / "samplernn_pase_tpu_torch"
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
@@ -161,14 +163,27 @@ def test_port_imports_no_jax():
         for p in pkg.rglob("*.py"))
     assert "samplernn_pase_tpu_torch.generate" in mods
     code = ("import importlib, sys\n"
+            "import numpy, torch\n"
+            "base = {m.split('.')[0] for m in sys.modules}\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'samplernn_pase_tpu.')) or m == 'samplernn_pase_tpu']\n"
+            "added = sorted({m.split('.')[0] for m in sys.modules} - base)\n"
             "print(bad)\n"
+            "print(added)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    # beyond what importing torch and numpy loads, the port loads only
+    # itself and the standard library (no scipy: audio_io reads, writes
+    # and resamples without it)
+    added = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+    assert "samplernn_pase_tpu_torch.ops.audio_io" in mods
+    assert "samplernn_pase_tpu_torch" in added
+    foreign = [r for r in added if r != "samplernn_pase_tpu_torch"
+               and r not in sys.stdlib_module_names]
+    assert not foreign, foreign
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]

@@ -158,16 +158,43 @@ def test_state_helpers_match_jax():
 # would move its parameter by 2 * lr = 2e-3 per step; the bound 1e-5 is
 # far below that and far above the float32 differences of the sums
 # (about 1e-7 here), so any wrong step or sign fails it.
-@pytest.mark.parametrize("grad_clip", [1e-3, 1e3], ids=["clipped",
-                                                         "unclipped"])
-def test_train_steps_match_jax(grad_clip):
-    jc, tc, jp, tp = _models(3)
+# (grad clip, model overrides): the base GRU model clipped and not, and
+# four models with cond, speakers, weight norm, stacked layers, no h0, a
+# small q and f1 = 1, each with the clip at 1.0
+TRAIN_CASES = {
+    "clipped": (1e-3, {}),
+    "unclipped": (1e3, {}),
+    "lstm3_cond_spk_wn": (1.0, {"rnn_type": "lstm",
+                                "frame_sizes": (4, 2, 2), "cond_dim": 4,
+                                "cond_rate": 8, "n_speakers": 3,
+                                "weight_norm": True}),
+    "gru_n_rnn2_cond_spk": (1.0, {"n_rnn": 2, "cond_dim": 4, "cond_rate": 8,
+                                  "n_speakers": 2}),
+    "lstm_n_rnn2_no_h0_q64": (1.0, {"rnn_type": "lstm", "n_rnn": 2,
+                                    "learn_h0": False, "q_levels": 64}),
+    "gru_f1_1": (1.0, {"frame_sizes": (4, 1)}),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_train_steps_match_jax(case):
+    grad_clip, overrides = TRAIN_CASES[case]
+    jc, tc, jp, tp = _models(3, **overrides)
     k_steps = 3
     rng = np.random.default_rng(4)
-    xs = rng.integers(0, 256, (k_steps, B, jc.lookback * 5), np.int32)
+    xs = rng.integers(0, jc.q_levels, (k_steps, B, jc.lookback * 5),
+                      np.int32)
     ys = xs[:, :, jc.lookback:]
     rs = np.array([[1, 1, 1], [0, 1, 0], [0, 0, 0]], np.float32)
-    valid = np.array([[32, 32, 32], [32, 20, 0], [32, 32, 32]], np.int32)
+    valid = np.minimum(np.array([[32, 32, 32], [32, 20, 0], [32, 32, 32]],
+                                np.int32), ys.shape[-1])
+    extra = [{} for _ in range(k_steps)]
+    for e in extra:
+        if jc.cond_dim:
+            e["cond"] = rng.normal(size=(B, ys.shape[-1] // jc.cond_rate,
+                                         jc.cond_dim)).astype(np.float32)
+        if jc.n_speakers:
+            e["speakers"] = rng.integers(0, jc.n_speakers, (B,), np.int32)
     jtx = joptim.make_optimizer(1e-3, grad_clip)
     ttx = toptim.make_optimizer(1e-3, grad_clip)
     jstep = jtrainer.make_train_step(jc, jtx)
@@ -176,16 +203,20 @@ def test_train_steps_match_jax(grad_clip):
     jopt, jh = jtx.init(jpar), jsrnn.initial_state(jpar, jc, B)
     tpar, topt = tp, ttx.init(tp)
     th = tsrnn.initial_state(tp, tc, B)
-    h0_before = tp["tiers"][0]["h0"].clone()
+    h0_before = tp["tiers"][0].get("h0", torch.zeros(0)).clone()
     tnlls = []
     for k in range(k_steps):
         jpar, jopt, jh, jn = jstep(jpar, jopt, jh, jnp.asarray(xs[k]),
                                    jnp.asarray(ys[k]), jnp.asarray(rs[k]),
-                                   valid=jnp.asarray(valid[k]))
+                                   valid=jnp.asarray(valid[k]),
+                                   **{n: jnp.asarray(v)
+                                      for n, v in extra[k].items()})
         tpar, topt, th, tn = tstep(tpar, topt, th, torch.from_numpy(xs[k]),
                                    torch.from_numpy(ys[k]),
                                    torch.from_numpy(rs[k]),
-                                   valid=torch.from_numpy(valid[k]))
+                                   valid=torch.from_numpy(valid[k]),
+                                   **{n: torch.from_numpy(v)
+                                      for n, v in extra[k].items()})
         assert abs(float(tn) - float(jn)) < 1e-4, (k, float(tn), float(jn))
         tnlls.append(float(tn))
     for a, b in zip(tree_leaves(tpar),
@@ -193,13 +224,16 @@ def test_train_steps_match_jax(grad_clip):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=0)
     for a, b in zip(th, jh):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
-    assert torch.equal(tpar["tiers"][0]["h0"], h0_before)
+    assert torch.equal(tpar["tiers"][0].get("h0", torch.zeros(0)),
+                       h0_before)
     # the multi-step function is K single steps
     multi = ttrainer.make_multi_train_step(tc, ttx)
+    staged = {n: torch.from_numpy(np.stack([e[n] for e in extra]))
+              for n in extra[0]}
     mpar, _, mh, mn = multi(tp, ttx.init(tp), tsrnn.initial_state(tp, tc, B),
                             torch.from_numpy(xs), torch.from_numpy(ys),
                             torch.from_numpy(rs),
-                            valid=torch.from_numpy(valid))
+                            valid=torch.from_numpy(valid), **staged)
     np.testing.assert_array_equal(mn.numpy(), np.float32(tnlls))
     for a, b in zip(tree_leaves(mpar), tree_leaves(tpar)):
         assert torch.equal(a, b)
@@ -286,14 +320,30 @@ def test_optimizer_matches_optax():
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    """init_params and graft_entry.entry run on the card unless asked for
-    the CPU: without a card they refuse rather than fall back."""
+    """init_params, graft_entry.entry, the Trainer, the bench twins and
+    the quality smoke run on the card unless asked for the CPU: without a
+    card they refuse rather than fall back."""
+    from samplernn_pase_tpu_torch import bench
+    from samplernn_pase_tpu_torch.config import TrainConfig
+    from samplernn_pase_tpu_torch.data.dataset import synthetic_corpus
+    from samplernn_pase_tpu_torch.scripts import bench_train, quality_smoke
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TCfg(**BASE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsrnn.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graft_entry.entry()
+    corpus = synthetic_corpus(n_utts=1, length=256)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrainer.Trainer(cfg, TrainConfig(batch_size=1, seq_len=64), corpus)
+    for run in (bench.run, bench_train.run):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quality_smoke.main(["--tiny"])
+    t = ttrainer.Trainer(cfg, TrainConfig(batch_size=1, seq_len=64),
+                         corpus, device="cpu")
+    assert t.device.type == "cpu" and t.hiddens[0].device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device().type == "cuda"
     params = tsrnn.init_params(torch.Generator().manual_seed(0), cfg,
