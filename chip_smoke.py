@@ -109,8 +109,39 @@ Phases (any failure ends the run with a non-zero exit):
 14. the bench twins, python -m samplernn_pase_tpu_torch.bench and python
    -m samplernn_pase_tpu_torch.scripts.bench_train, each in its own
    process: their JSON lines, with a positive value and no skip;
-15. a {"kernels": [...]} line, then the last line
-   {"ok": true, "device": {"platform": "gpu", ...}}.
+15. config 3's extraction (configs/c3_pase_extract.json's encoder: 64
+   sinc filters of 251 taps, 7 blocks, emb 256, decimation 160, bf16;
+   random weights from a seed) through extract_to_dir at batch 16 over
+   phase 12's wavs, rewritten from its seed into two speaker folders:
+   each .npy len // 160 rows of 256, finite, in the mirrored tree; one
+   batch in float32 on the card (TF32 off) within 1e-4 of the CPU's in
+   relative norm, bf16 within 0.05 of float32; seconds of audio embedded
+   per second and the convolutions' time per batch;
+16. config 4 through JointTrainer.run (its model, pase and train
+   sections: B=32, seq_len 1280, steps_per_call 8, bf16) for 2 epochs
+   over those wavs, with phase 12's plugins and checks (the
+   GeneratorPlugin conditioned through generation_cond): K4 as in phase
+   12, K7 decode once per train and val step and twice for the
+   generation, the encoder's parameters and BatchNorm state trained
+   (count = train steps), a resume bit-equal to the uninterrupted run
+   (both halves, BatchNorm state, hiddens, Adam); K7 at joint_cond's
+   strided [32, 1280] view bit-equal to its plain version; one joint step
+   against the scan route as in phase 4; the encoder's share of a step
+   and the cost of its deterministic convolutions;
+17. serve.run_jobs with config 4's model on 128 lanes at T=1.0, chunks
+   of 1,024: 200 jobs conditioned on phase 15's embeddings at their
+   natural length (4 with a stream_key, 4 continuing a prompt),
+   retain_results=False: every length, on_done once per job, exact
+   launch counts, each waveform through K7's decode (equal to the plain
+   decode), the pinned jobs bit-equal to solo B=1 streams, 16 jobs equal
+   with enqueue_ahead on and off, a bad manifest raising before any job;
+   wall time, samples/s, utilization, idle share and host syncs a chunk;
+18. the bench_pool twin (python -m samplernn_pase_tpu_torch.scripts.
+   bench_pool) in its own process: its 8 rows, positive, no skip;
+19. a {"kernels": [...]} line (launch counts over phases 3-17's main
+   paths), which fails the run if any entry, or any by_path or
+   projection sub-entry, reads faster than its bound_ms; then the last
+   line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Phase 2 also holds config 4's kernel modes against their plain versions:
 K2's conditioning epilogue at both tier inputs (exact against K2 without
@@ -474,10 +505,12 @@ def profile_step(torch, fn, step_s: float):
         f"{k[:60]} {ms:.2f} ms/{c}" for k, (ms, c) in top))
 
 
-def check_routes(torch, dev, cfg, params, x, y):
+def check_routes(torch, dev, cfg, params, x, y, loss=None):
     """One step's NLL and gradients on the kernel route against the plain
     scan route (pallas_train_rnn=False), in float32 and in bf16; raises
-    SmokeFailure beyond the bounds below."""
+    SmokeFailure beyond the bounds below.  ``loss(q, c)``, the step's NLL
+    of params q under model config c, defaults to the model's own from h0
+    on (x, y)."""
     import dataclasses
 
     from samplernn_pase_tpu_torch.models import samplernn
@@ -487,8 +520,8 @@ def check_routes(torch, dev, cfg, params, x, y):
 
     def grads(c, p0=params):
         q = tree_map(lambda a: a.detach().requires_grad_(True), p0)
-        nll, _ = samplernn.loss_fn(q, c, x, y,
-                                   samplernn.initial_state(p0, c, b))
+        nll = (loss(q, c) if loss is not None else samplernn.loss_fn(
+            q, c, x, y, samplernn.initial_state(p0, c, b))[0])
         g = torch.autograd.grad(nll, tree_leaves(q), allow_unused=True)
         return nll.item(), g
 
@@ -1835,19 +1868,48 @@ def c4_corpus(dirs, cfg, seq_len: int, seed: int):
             -(-n // cfg.cond_rate), cfg.cond_dim)).astype(np.float32))
 
 
-def c4_trainer(torch, dev, exp, params, card):
-    """Phase 12: config 4's training through Trainer.run for 2 epochs with
-    its plugins on a corpus read from disk, then a resume from the
-    second epoch's mid-epoch checkpoint equal to the uninterrupted run.
-    Returns the phase's K4 launch counts, or raises SmokeFailure."""
+def tree_diff(torch, a, b) -> float:
+    """Largest absolute difference of two trees of tensors, leaves matched
+    by key and index (a restored tree may order its keys otherwise)."""
+    if isinstance(a, dict):
+        require(set(a) == set(b), f"tree keys {sorted(a)} != {sorted(b)}")
+        return max((tree_diff(torch, a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        require(len(a) == len(b), "tree lengths differ")
+        return max((tree_diff(torch, x, y) for x, y in zip(a, b)),
+                   default=0.0)
+    if not isinstance(a, torch.Tensor):
+        return 0.0 if a == b else float("inf")
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+def drive_trainer(torch, cfg, tcfg, corpus, make, work, card, label,
+                  gen_cond=None, codec_per_step=0, gen_codec=1):
+    """Phases 12 and 16: ``make(tcfg, plugins)`` builds a trainer over
+    ``corpus``, which runs ``tcfg.epochs`` epochs with LoggerPlugin,
+    ValidationPlugin (every 2 groups and at each epoch's end),
+    CheckpointPlugin (every group) and a GeneratorPlugin that fires once
+    (2 sequences of C4_GEN samples at T=1.0, on ``gen_cond`` or, without
+    it, the trainer's generation_cond).  Checks: K4 forward twice per train
+    and val step and backward twice per train step; K7 decode
+    ``codec_per_step`` times per train and val step and ``gen_codec`` times
+    for the generation; the generation's K1/K2/K3 exactly; steps numbered
+    in order; a finite NLL that falls; held-out val lines; the retention
+    (latest 3 and the best); the wavs written; the data on the native
+    route.  Prints step ms, bottom frames/s, the traced group's idle share,
+    peak memory and the host's time by part.  Then a fresh trainer
+    restores the second epoch's mid-epoch checkpoint and runs to the end:
+    its steps, batch indices, NLLs, checkpoint params, hiddens and Adam
+    moments equal the uninterrupted run's bit for bit.  The caller resets
+    ``native_loader``'s routes before it reads the corpus.  Returns
+    (trainer, launches of the run: K4, decode kernels and codec, (step ms,
+    device ms per traced step)), or raises SmokeFailure."""
     import dataclasses
     import math
-    import shutil
 
     import numpy as np
 
     from samplernn_pase_tpu_torch.data import native_loader
-    from samplernn_pase_tpu_torch.data.dataset import WavCorpus
     from samplernn_pase_tpu_torch.ops import audio_io
     from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
     from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
@@ -1855,35 +1917,20 @@ def c4_trainer(torch, dev, exp, params, card):
     from samplernn_pase_tpu_torch.train import trainer as tr
     from samplernn_pase_tpu_torch.train.checkpoint import CheckpointManager
     from samplernn_pase_tpu_torch.train.metrics import MetricsWriter
-    from samplernn_pase_tpu_torch.tree import tree_leaves
 
-    cfg = exp.model
-    k_call = cadence = exp.train.steps_per_call
-    work = ROOT / "build" / "c4_trainer"
-    shutil.rmtree(work, ignore_errors=True)
-    tcfg = dataclasses.replace(exp.train, epochs=2,
-                               profile_dir=str(work / "profile"))
-    t0 = time.perf_counter()
-    c4_corpus((work / "wavs", work / "cond"), cfg, tcfg.seq_len, 41)
-    native_loader.reset_routes()
-    corpus = WavCorpus.from_folder(work / "wavs", cond_dir=work / "cond")
-    t_data = time.perf_counter() - t0
+    k_call = cadence = tcfg.steps_per_call
     steps = len(corpus.batcher("train", tcfg.batch_size, tcfg.seq_len,
                                cfg.lookback, cfg.cond_rate))
     val_steps = len(corpus.batcher("val", tcfg.batch_size, tcfg.seq_len,
                                    cfg.lookback, cfg.cond_rate))
-    total = 2 * steps
-    print(f"config 4 corpus: {C4_UTTS} wavs and cond rows written and read "
-          f"back in {t_data:.1f} s ({len(corpus.train_idx)} train, "
-          f"{len(corpus.val_idx)} held out); an epoch is {steps} steps "
-          f"of B={tcfg.batch_size}, seq_len {tcfg.seq_len} "
-          f"(groups of {k_call}), validation {val_steps} steps")
+    total = tcfg.epochs * steps
+    print(f"{label}: {len(corpus.train_idx)} train and "
+          f"{len(corpus.val_idx)} held-out utterances; an epoch is {steps} "
+          f"steps of B={tcfg.batch_size}, seq_len {tcfg.seq_len} (groups "
+          f"of {k_call}), validation {val_steps} steps")
     require(corpus.has_val and steps >= 2 * k_call and steps % k_call
-            and val_steps % k_call, "config 4 corpus: the epoch needs 2 "
+            and val_steps % k_call, f"{label} corpus: the epoch needs 2 "
             "full groups and a tail, and a held-out split with a tail")
-    gen_cond = np.random.default_rng(42).normal(
-        size=(2, -(-C4_GEN // cfg.cond_rate), cfg.cond_dim)).astype(
-        np.float32)
     writer = MetricsWriter(work / "metrics.jsonl", echo=False)
     mgr = CheckpointManager(work / "ckpt", max_to_keep=tcfg.max_to_keep)
     recs = []
@@ -1902,8 +1949,7 @@ def c4_trainer(torch, dev, exp, params, card):
                                   n_seqs=2, length=C4_GEN, temperature=1.0,
                                   cond=gen_cond),
                Cap()]
-    trainer = tr.Trainer(cfg, tcfg, corpus, plugins=plugins, params=params,
-                         device=dev)
+    trainer = make(tcfg, plugins)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rt.reset_launches()
@@ -1916,11 +1962,12 @@ def c4_trainer(torch, dev, exp, params, card):
     writer.close()
     peak = torch.cuda.max_memory_allocated()
     seq = dict(rt.LAUNCHES)
-    dec = {k: v for k, v in kdec.LAUNCHES.items() if v}
-    n_val = (total // val_every + 2) * val_steps
-    print(f"config 4 Trainer.run launches: {seq}; decode kernels {dec}; "
-          f"codec {dict(kcodec.LAUNCHES)}; data routes "
-          f"{dict(native_loader.ROUTES)}")
+    dec = dict(kdec.LAUNCHES)
+    cod = dict(kcodec.LAUNCHES)
+    n_val = (total // val_every + tcfg.epochs) * val_steps
+    print(f"{label} launches: {seq}; decode kernels "
+          f"{ {k: v for k, v in dec.items() if v} }; codec {cod}; data "
+          f"routes {dict(native_loader.ROUTES)}")
     require(seq == {"gru_sequence_fwd": 2 * (total + n_val),
                     "gru_sequence_bwd": 2 * total,
                     "lstm_sequence_fwd": 0, "lstm_sequence_bwd": 0},
@@ -1928,21 +1975,24 @@ def c4_trainer(torch, dev, exp, params, card):
             f"({total} and {n_val}) and 2 backward per train step")
     want = decode_launches(cfg, C4_GEN)
     want["gemm_bias"] += cfg.frame_sizes[0]    # the request's MLP fold
-    require(dict(kdec.LAUNCHES) == want
-            and kcodec.LAUNCHES["codec_decode"] == 1,
-            "GeneratorPlugin: one conditioned request of "
-            f"{C4_GEN} samples through K1/K2/K3 and K7's decode expected")
+    require(dec == want, f"GeneratorPlugin: decode launches {dec}, "
+            f"expected one conditioned request of {C4_GEN} samples {want}")
+    want_k7 = codec_per_step * (total + n_val) + gen_codec
+    require(cod == {"codec_encode": 0, "codec_decode": want_k7},
+            f"K7 launches {cod}: expected {codec_per_step} decode per "
+            f"train and val step and {gen_codec} for the generation")
+    # the routes count from the caller's reset before the corpus was read
     require(native_loader.ROUTES["numpy"] == 0
-            and native_loader.ROUTES["native"] >= C4_UTTS + total,
-            "the data path left the native route")
+            and native_loader.ROUTES["native"] >= len(corpus.utterances)
+            + total, "the data path left the native route")
     require([r[0] for r in recs] == list(range(total)),
             "steps not numbered 0..n-1")
     nlls = [r[2] for r in recs]
     require(all(math.isfinite(v) for v in nlls), "non-finite NLL")
     first, last = (sum(nlls[:k_call]) / k_call,
                    sum(nlls[-k_call:]) / k_call)
-    print(f"config 4 train NLL (bits), mean of the first and last "
-          f"{k_call} steps: {first:.4f} -> {last:.4f}; per step "
+    print(f"{label} train NLL (bits), mean of the first and last {k_call} "
+          f"steps: {first:.4f} -> {last:.4f}; per step "
           + ", ".join(f"{v:.3f}" for v in nlls))
     require(last < first, "the NLL did not fall")
     lines = [json.loads(s) for s in
@@ -1969,7 +2019,7 @@ def c4_trainer(torch, dev, exp, params, card):
                 f"{w.name}: {x.shape} at {sr} Hz")
     where = [f"step {d['step']}" if "step" in d
              else f"end of epoch {d['epoch']}" for d in val]
-    print("config 4 val NLL (bits): " + ", ".join(
+    print(f"{label} val NLL (bits): " + ", ".join(
         f"{d['nll_bits']:.4f} ({w})" for d, w in zip(val, where))
         + f"; checkpoints {kept} (best {best}); GeneratorPlugin wavs "
         f"{[w.name for w in wavs]} read back, 2 x {C4_GEN} samples")
@@ -1986,15 +2036,14 @@ def c4_trainer(torch, dev, exp, params, card):
     busy = sum(e.self_device_time_total for e in prof.prof.key_averages()
                if str(e.device_type).endswith("CUDA")) / 1e3
     host = trainer.host_s
-    print(f"config 4 Trainer.run, B={b}, seq_len {t}, steps_per_call "
-          f"{k_call}: {step_ms:.2f} ms per step over the second epoch's "
-          f"full groups ({b * t / cfg.frame_sizes[0] / step_ms * 1e3:,.0f}"
-          f" bottom frames/s; first group, warm-up, "
-          f"{ms(recs[:k_call]):.2f}; the tail, one step a call, "
-          f"{ms(recs[total - steps % k_call:]):.2f}); traced group "
-          f"(steps {k_call}-{2 * k_call - 1}, profiler on): device busy "
-          f"{busy:.1f} ms of {prof.wall_s * 1e3:.1f} ms, idle share "
-          f"{1 - busy / (prof.wall_s * 1e3):.3f} (profiler on), "
+    print(f"{label}, B={b}, seq_len {t}, steps_per_call {k_call}: "
+          f"{step_ms:.2f} ms per step over the second epoch's full groups "
+          f"({b * t / cfg.frame_sizes[0] / step_ms * 1e3:,.0f} bottom "
+          f"frames/s; first group, warm-up, {ms(recs[:k_call]):.2f}; the "
+          f"tail, one step a call, {ms(recs[total - steps % k_call:]):.2f})"
+          f"; traced group (steps {k_call}-{2 * k_call - 1}, profiler on): "
+          f"device busy {busy:.1f} ms of {prof.wall_s * 1e3:.1f} ms, idle "
+          f"share {1 - busy / (prof.wall_s * 1e3):.3f} (profiler on), "
           f"{1 - busy / k_call / step_ms:.3f} of the unprofiled steps; "
           f"peak memory {peak / 2 ** 30:.2f} GiB; host seconds of the "
           f"{wall:.1f} s run: "
@@ -2012,8 +2061,7 @@ def c4_trainer(torch, dev, exp, params, card):
         def on_step(self, trainer, step, metrics):
             resumed.append((step, trainer.batch_idx, metrics["nll_bits"]))
 
-    t2 = tr.Trainer(cfg, dataclasses.replace(tcfg, profile_dir=""),
-                    corpus, plugins=[Cap2()], params=params, device=dev)
+    t2 = make(dataclasses.replace(tcfg, profile_dir=""), [Cap2()])
     require(t2.restore(mgr, step=at), "no checkpoint to resume from")
     t2.run()
     torch.cuda.synchronize()
@@ -2024,25 +2072,498 @@ def c4_trainer(torch, dev, exp, params, card):
     require([r[:2] for r in resumed] == [r[:2] for r in recs[nxt:]],
             "resume: step numbering or batch indices differ from the "
             "uninterrupted run")
-    diffs = {}
-    for what, got, want in (
-            ("params", tree_leaves(t2.params), tree_leaves(trainer.params)),
-            ("hiddens", list(t2.hiddens), list(trainer.hiddens)),
-            ("adam", tree_leaves(t2.opt_state["mu"])
-             + tree_leaves(t2.opt_state["nu"]),
-             tree_leaves(trainer.opt_state["mu"])
-             + tree_leaves(trainer.opt_state["nu"]))):
-        diffs[what] = max((a.float() - w.float()).abs().max().item()
-                          for a, w in zip(got, want))
+    diffs = {"params": tree_diff(torch, t2._ckpt_params(),
+                                 trainer._ckpt_params()),
+             "hiddens": tree_diff(torch, list(t2.hiddens),
+                                  list(trainer.hiddens)),
+             "adam": tree_diff(torch, [t2.opt_state["mu"],
+                                       t2.opt_state["nu"]],
+                               [trainer.opt_state["mu"],
+                                trainer.opt_state["nu"]])}
     nll_diff = max(abs(a[2] - b[2]) for a, b in zip(resumed, recs[nxt:]))
-    print(f"config 4 resume from checkpoint {at} (cursor "
+    print(f"{label} resume from checkpoint {at} (cursor "
           f"{cursor.tolist()}): steps {resumed[0][0]}-{resumed[-1][0]}; "
           f"max abs difference from the uninterrupted run: NLL {nll_diff}, "
           + ", ".join(f"{k} {v}" for k, v in diffs.items()))
     require(nll_diff == 0 and not any(diffs.values()),
             "the resumed run differs from the uninterrupted run")
+    return trainer, {**seq, **dec, **cod}, (step_ms, busy / k_call)
+
+
+def c4_trainer(torch, dev, exp, params, card):
+    """Phase 12: config 4's training through Trainer.run for 2 epochs with
+    its plugins on a corpus read from disk (wavs and cached cond rows),
+    then a resume from the second epoch's mid-epoch checkpoint equal to
+    the uninterrupted run (``drive_trainer``).  Returns the phase's
+    launch counts, or raises SmokeFailure."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.data import native_loader
+    from samplernn_pase_tpu_torch.data.dataset import WavCorpus
+    from samplernn_pase_tpu_torch.train import trainer as tr
+
+    cfg = exp.model
+    work = ROOT / "build" / "c4_trainer"
     shutil.rmtree(work, ignore_errors=True)
-    return seq
+    tcfg = dataclasses.replace(exp.train, epochs=2,
+                               profile_dir=str(work / "profile"))
+    t0 = time.perf_counter()
+    c4_corpus((work / "wavs", work / "cond"), cfg, tcfg.seq_len, 41)
+    native_loader.reset_routes()
+    corpus = WavCorpus.from_folder(work / "wavs", cond_dir=work / "cond")
+    print(f"config 4 corpus: {C4_UTTS} wavs and cond rows written and read "
+          f"back in {time.perf_counter() - t0:.1f} s")
+    gen_cond = np.random.default_rng(42).normal(
+        size=(2, -(-C4_GEN // cfg.cond_rate), cfg.cond_dim)).astype(
+        np.float32)
+    _, launches, _ = drive_trainer(
+        torch, cfg, tcfg, corpus,
+        lambda tc, plugins: tr.Trainer(cfg, tc, corpus, plugins=plugins,
+                                       params=params, device=dev),
+        work, card, "config 4 Trainer.run", gen_cond=gen_cond)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+TTS_WORK = ROOT / "build" / "c4_tts"   # phases 15-17: wavs, embeddings
+EXTRACT_BATCH = 16
+C4_JOBS = 200          # phase 17's manifest
+C4_JOB_KEYS = 4        # of them with a pinned stream_key
+C4_JOB_SEEDS = 4       # and with seed_levels and seed_cond
+
+
+def tts_corpus(cfg, seq_len: int):
+    """Phases 15-17's wavs: phase 12's (``c4_corpus`` from its seed), in
+    two speaker folders a/ and b/ so that extraction mirrors a tree."""
+    import shutil
+    shutil.rmtree(TTS_WORK, ignore_errors=True)
+    wavs = TTS_WORK / "wavs"
+    c4_corpus((wavs, TTS_WORK / "cond"), cfg, seq_len, 41)
+    for i, f in enumerate(sorted(wavs.glob("*.wav"))):
+        spk = wavs / ("a" if i < C4_UTTS // 2 else "b")
+        spk.mkdir(exist_ok=True)
+        f.rename(spk / f.name)
+    shutil.rmtree(TTS_WORK / "cond")
+    return wavs
+
+
+def pase_kernel_ms(torch, fn):
+    """(convolution ms, other ms, kernels) of fn() on the card from
+    torch.profiler: cuDNN's convolution kernels (and their transposes)
+    against the rest."""
+    times = kernel_times(torch, fn)
+    conv = sum(ms for k, (ms, _) in times.items() if any(
+        w in k.lower() for w in ("conv", "xmma", "cudnn", "implicit",
+                                 "fprop", "dgrad", "wgrad", "gemm")))
+    return conv, sum(ms for ms, _ in times.values()) - conv, len(times)
+
+
+def c3_extraction(torch, dev, pcfg, wav_dir, card):
+    """Phase 15: config 3's encoder (configs/c3_pase_extract.json's pase
+    section: 64 sinc filters of 251 taps, 7 blocks, emb 256, decimation
+    160, bf16) with random weights from a seed, ``extract_to_dir`` at
+    batch 16 over ``wav_dir``, written to disk.  Checks: each .npy has
+    len // 160 rows of 256 finite float32 values at the wav's path in the
+    mirrored tree; one batch in float32 on the card (TF32 off) within
+    1e-4 of the same batch on the CPU in relative norm (float32 sums in
+    another order through 8 layers); the bf16 embeddings within 0.05 of
+    the float32 card's in relative norm.  Prints seconds of audio
+    embedded per second (a second, warm pass in memory) and the conv time
+    per batch.  Returns {wav path: embedding}."""
+    import dataclasses
+
+    import numpy as np
+
+    from samplernn_pase_tpu_torch import extract
+    from samplernn_pase_tpu_torch.models import pase
+    from samplernn_pase_tpu_torch.ops.audio_io import read_wav
+    from samplernn_pase_tpu_torch.tree import tree_map
+
+    params, bn = pase.init_pase(torch.Generator().manual_seed(17), pcfg, dev)
+    emb_dir = TTS_WORK / "emb"
+    files = sorted(wav_dir.glob("**/*.wav"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = extract.extract_to_dir(params, bn, pcfg, wav_dir, emb_dir,
+                                  batch_size=EXTRACT_BATCH, device=dev)
+    t_dir = time.perf_counter() - t0
+    wavs = [read_wav(f)[0] for f in files]
+    require(outs == [emb_dir / f.relative_to(wav_dir).with_suffix(".npy")
+                     for f in files] and {o.parent.name for o in outs}
+            == {"a", "b"}, "extract_to_dir did not mirror the wav tree")
+    embs = {}
+    for f, o, w in zip(files, outs, wavs):
+        e = np.load(o)
+        require(e.shape == (len(w) // pcfg.decimation, pcfg.emb_dim)
+                and e.dtype == np.float32 and np.isfinite(e).all(),
+                f"{o.name}: {e.shape} {e.dtype} for {len(w)} samples")
+        embs[f] = e
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = extract.extract_embeddings(params, bn, pcfg, wavs,
+                                       EXTRACT_BATCH, device=dev)
+    t_warm = time.perf_counter() - t0
+    require(all(np.array_equal(a, embs[f]) for a, f in zip(again, files)),
+            "a second extraction pass differs from the first")
+    audio_s = sum(len(w) for w in wavs) / pcfg.sample_rate
+    # one batch, the longest 16, padded as extract_embeddings pads
+    order = np.argsort([len(w) for w in wavs])[-EXTRACT_BATCH:]
+    pad = pcfg.decimation * 8
+    width = -(-max(len(wavs[i]) for i in order) // pad) * pad
+    x = np.zeros((EXTRACT_BATCH, width), np.float32)
+    for row, i in enumerate(order):
+        x[row, :len(wavs[i])] = wavs[i]
+    xd = torch.from_numpy(x).to(dev)
+    p32 = dataclasses.replace(pcfg, compute_dtype="float32")
+    with torch.inference_mode():
+        e_cpu = pase.pase_apply(tree_map(lambda t: t.cpu(), params),
+                                tree_map(lambda t: t.cpu(), bn),
+                                torch.from_numpy(x), p32)[0]
+        e32 = pase.pase_apply(params, bn, xd, p32)[0]
+        e16 = pase.pase_apply(params, bn, xd, pcfg)[0]
+    rel_cpu = ((e32.cpu() - e_cpu).norm() / e_cpu.norm()).item()
+    rel16 = ((e16 - e32).norm() / e32.norm()).item()
+    print(f"config 3 extraction, {len(files)} wavs ({audio_s:.1f} s of "
+          f"audio) at batch {EXTRACT_BATCH}: float32 on the card against "
+          f"the CPU {rel_cpu:.2e} in relative norm (max abs "
+          f"{(e32.cpu() - e_cpu).abs().max().item():.2e}, bound 1e-4); "
+          f"bf16 against float32 on the card {rel16:.4f} (bound 0.05)")
+    require(rel_cpu <= 1e-4, "the float32 embeddings on the card differ "
+            "from the CPU's")
+    require(rel16 <= 0.05, "the bf16 embeddings differ from float32's")
+
+    def batch():
+        with torch.inference_mode():
+            pase.pase_apply(params, bn, xd, pcfg)
+
+    conv, other, n_k = pase_kernel_ms(torch, batch)
+    wall = cuda_ms(torch, batch, 10)
+    print(f"config 3 extraction: {audio_s / t_dir:,.1f} s of audio per s "
+          f"(extract_to_dir: read, embed, write {len(files)} .npy, "
+          f"{t_dir:.2f} s), {audio_s / t_warm:,.1f} s of audio per s warm in "
+          f"memory ({t_warm:.3f} s); one batch [{EXTRACT_BATCH}, {width}] "
+          f"bf16: {wall:.2f} ms, device: convolutions {conv:.2f} ms, the "
+          f"rest {other:.2f} ms ({n_k} kernels, torch.profiler); on {card}")
+    return embs
+
+
+def joint_route_check(torch, dev, cfg, pcfg, params, bn, x, y):
+    """One joint step's NLL and gradients (both halves) on the kernel
+    route against the scan route, as phase 4's ``check_routes``."""
+    import dataclasses
+
+    from samplernn_pase_tpu_torch.models import pase, samplernn
+    from samplernn_pase_tpu_torch.train.joint import joint_cond
+
+    def loss(q, c):
+        pc = dataclasses.replace(pcfg, compute_dtype=c.compute_dtype)
+        cond, _ = joint_cond(q["pase"], bn, c, pc, x, train=True)
+        return samplernn.loss_fn(
+            q["srnn"], c, x, y,
+            samplernn.initial_state(q["srnn"], c, x.shape[0]), cond)[0]
+
+    with pase.conv_numerics():
+        check_routes(torch, dev, cfg, params, x, y, loss=loss)
+
+
+def c4_joint(torch, dev, exp, wav_dir, card):
+    """Phase 16: config 4 through JointTrainer.run at full width (the
+    model, pase and train sections of configs/c4_tts_conditioned.json:
+    B=32, seq_len 1280, steps_per_call 8, bf16) for 2 epochs over the
+    wavs without cached conditioning, by ``drive_trainer`` (K7 decode
+    once per train and val step, twice for the generation: the
+    conditioning's utterance and the audio).  Also: the encoder's
+    parameters and BatchNorm state moved, ``count`` equals the train
+    steps; K7 at joint_cond's strided [32, 1280] view (row pitch 1296)
+    bit-equal to its plain version; one joint step on the kernel route
+    against the scan route; the encoder's share of a step's device time,
+    what its deterministic convolutions cost, and the kernels one joint
+    step launches beside the plain conditioned step's.  Returns the run's
+    launch counts, or raises SmokeFailure."""
+    import dataclasses
+
+    from samplernn_pase_tpu_torch.data import native_loader
+    from samplernn_pase_tpu_torch.data.dataset import WavCorpus
+    from samplernn_pase_tpu_torch.models import pase, samplernn
+    from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+    from samplernn_pase_tpu_torch.scripts import codec_bench
+    from samplernn_pase_tpu_torch.train.joint import (
+        JointTrainer, init_joint, joint_cond, make_joint_train_step)
+    from samplernn_pase_tpu_torch.train.optim import make_optimizer
+    from samplernn_pase_tpu_torch.train.trainer import make_train_step
+    from samplernn_pase_tpu_torch.tree import tree_map
+
+    cfg, pcfg = exp.model, exp.pase
+    work = TTS_WORK / "joint"
+    tcfg = dataclasses.replace(exp.train, epochs=2,
+                               profile_dir=str(work / "profile"))
+    native_loader.reset_routes()
+    corpus = WavCorpus.from_folder(wav_dir)
+    params, bn = init_joint(torch.Generator().manual_seed(19), cfg, pcfg,
+                            device=dev)
+
+    def make(tc, plugins):
+        return JointTrainer(cfg, pcfg, tc, corpus, plugins, params=params,
+                            bn_state=bn, device=dev)
+
+    trainer, launches, (step_ms, busy) = drive_trainer(
+        torch, cfg, tcfg, corpus, make, work, card,
+        "config 4 JointTrainer.run", codec_per_step=1, gen_codec=2)
+    total = trainer.global_step
+    moved = tree_diff(torch, trainer.params["pase"], params["pase"])
+    counts = {float(trainer.bn_state[k]["count"]) for k in ("sinc", "proj")}
+    counts |= {float(s["count"]) for s in trainer.bn_state["blocks"]}
+    bn_moved = tree_diff(torch, trainer.bn_state["proj"]["mean"],
+                         bn["proj"]["mean"])
+    print(f"config 4 joint: encoder parameters moved by up to {moved:.3e}, "
+          f"its projection's running mean by {bn_moved:.3e}; BatchNorm "
+          f"count {sorted(counts)} after {total} train steps")
+    require(moved > 0 and bn_moved > 0 and counts == {float(total)},
+            "the encoder or its BatchNorm state did not train")
+    # joint_cond's decode: K7 at the chunk's strided view
+    x = torch.randint(0, cfg.q_levels, (tcfg.batch_size,
+                                        cfg.lookback + tcfg.seq_len),
+                      generator=torch.Generator().manual_seed(5),
+                      dtype=torch.int32).to(dev)
+    y = x[:, cfg.lookback:]
+    got = kcodec.mu_law_decode(y, cfg.q_levels)
+    require(torch.equal(got, kcodec.mu_law_decode_plain(y, cfg.q_levels)),
+            "K7 decode of the strided chunk view differs from the plain "
+            "decode")
+    k7 = codec_bench.k7_times(
+        torch, lambda: kcodec.mu_law_decode(y, cfg.q_levels), "decode")
+    print(f"config 4 joint: K7 decode of the chunk's levels "
+          f"[{tcfg.batch_size}, {tcfg.seq_len}] (row pitch {y.stride(0)}, "
+          f"plan {tuple(kcodec.plan_for(y, got, cfg.q_levels, True))}): "
+          f"bit-equal to the plain decode, {k7['warm']:.3f} us warm, "
+          f"{k7['cold']:.3f} us cold L2")
+    joint_route_check(torch, dev, cfg, pcfg, params, bn, x, y)
+    # the encoder's forward and backward at the step's shape, alone
+    q = tree_map(lambda t: t.detach().requires_grad_(True), params["pase"])
+
+    def encoder(deterministic: bool):
+        def fn():
+            with pase.conv_numerics():
+                torch.backends.cudnn.deterministic = deterministic
+                cond, _ = joint_cond(q, bn, cfg, pcfg, x, train=True)
+                cond.sum().backward()
+        return fn
+
+    det, _ = device_ms(torch, encoder(True), 10)
+    nondet, _ = device_ms(torch, encoder(False), 10)
+    b, t = tcfg.batch_size, tcfg.seq_len
+    print(f"config 4 joint: the encoder's forward and backward at [{b}, "
+          f"{t}] {det:.3f} ms of device time with "
+          f"deterministic convolutions, {nondet:.3f} ms with cuDNN's "
+          f"default choice (x{det / nondet:.3f}); "
+          f"{det / busy if busy else float('nan'):.3f} of a "
+          f"traced step's {busy:.2f} ms device time ({step_ms:.2f} ms a "
+          f"step unprofiled); on {card}")
+    # where the host's time goes: kernels one step launches, the joint
+    # step against the plain step conditioned on rows of the same shape
+    tx = make_optimizer(exp.train.lr, exp.train.grad_clip)
+    hid = samplernn.initial_state(params["srnn"], cfg, b)
+    r = torch.zeros(b, device=dev)
+    cond = torch.randn(b, t // cfg.cond_rate, cfg.cond_dim, device=dev)
+    jstep = make_joint_train_step(cfg, pcfg, tx)
+    pstep = make_train_step(cfg, tx)
+    jopt, popt = tx.init(params), tx.init(params["srnn"])
+    steps = {
+        "joint": lambda: jstep(params, jopt, bn, hid, x, y, r),
+        "plain, conditioned": lambda: pstep(params["srnn"], popt, hid, x, y,
+                                            r, cond=cond)}
+    parts = []
+    for name, fn in steps.items():
+        times = kernel_times(torch, fn)
+        parts.append(f"{name} {sum(c for _, c in times.values())} kernels, "
+                     f"{sum(ms for ms, _ in times.values()):.2f} ms of "
+                     f"device time, {cuda_ms(torch, fn, 5):.2f} ms a call")
+    print("config 4 one train step (torch.profiler; CUDA events): "
+          + "; ".join(parts))
+    return launches
+
+
+def c4_jobs(torch, dev, exp, params, embs, card):
+    """Phase 17: ``serve.run_jobs`` with config 4's model (weights from a
+    seed) on 128 lanes at T=1.0, chunks of 1,024 samples, over a manifest
+    of C4_JOBS jobs conditioned on phase 15's embeddings at their natural
+    length (rows x 160): C4_JOB_KEYS with a pinned stream_key, C4_JOB_SEEDS
+    continuing a prompt (seed_levels, seed_cond), ``retain_results=False``
+    with ``on_done`` collecting.  Checks: every job's length, ``on_done``
+    once per job, no audio retained, exact launch counts, every job's
+    waveform through K7's decode (equal to the plain decode), the pinned
+    jobs bit-equal to solo B=1 StreamingGenerators with their keys, a
+    16-job subset equal with enqueue_ahead on and off, a bad manifest
+    raising before the first ``on_done``.  Prints wall time, samples/s,
+    utilization, the idle share and the host syncs per chunk.  Returns the
+    main run's launch counts (run_jobs, with K4's forward priming the
+    prompted lanes, and the waveform decodes), or raises SmokeFailure."""
+    import warnings
+
+    import numpy as np
+
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    from samplernn_pase_tpu_torch.serve import run_jobs
+
+    cfg, temp = exp.model, exp.generate.temperature
+    n_lanes, chunk = BATCH, C4_CHUNK
+    rows = list(embs.values())
+    rng = np.random.default_rng(51)
+    jobs = []
+    for i in range(C4_JOBS):
+        job = {"id": f"job{i:03d}", "cond": rows[i % len(rows)]}
+        if i % (C4_JOBS // C4_JOB_KEYS) == 1:
+            job["stream_key"] = lane_key(61, i, 0)
+        if i % (C4_JOBS // C4_JOB_SEEDS) == 2:
+            job["seed_levels"] = rng.integers(0, cfg.q_levels, 1024)
+            job["seed_cond"] = rows[(i + 1) % len(rows)][:7]
+        jobs.append(job)
+    want = {j["id"]: len(j["cond"]) * cfg.cond_rate for j in jobs}
+    done = {}
+
+    def collect(jid, levels):
+        require(jid not in done, f"on_done fired twice for {jid}")
+        done[jid] = levels
+
+    kw = dict(n_lanes=n_lanes, chunk=chunk, temperature=temp, seed=7,
+              device=dev)
+    kdec.reset_launches()
+    kcodec.reset_launches()
+    rt.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, stats = run_jobs(params, cfg, jobs, on_done=collect,
+                              retain_results=False, **kw)
+    wall = time.perf_counter() - t0
+    waves = {jid: tgen.decode_waveform(torch.from_numpy(lv).to(dev)[None],
+                                       cfg)[0] for jid, lv in done.items()}
+    torch.cuda.synchronize()
+    dec, cod, seq = dict(kdec.LAUNCHES), dict(kcodec.LAUNCHES), dict(
+        rt.LAUNCHES)
+    require(results == {} and set(done) == set(want) and all(
+        done[j].shape == (n,) and done[j].dtype == np.int32
+        for j, n in want.items()),
+        "run_jobs: a job missing, of the wrong length, or audio retained")
+    exp_dec = {}
+    for _ in range(stats["chunks"]):
+        exp_dec = add_counts(exp_dec, decode_launches(cfg, chunk, True))
+    exp_dec["gemm_bias"] += cfg.frame_sizes[0]  # kernel weights, first emit
+    print(f"run_jobs: {stats}; launches {dec}; codec {cod}; K4 {seq}")
+    require(dec == exp_dec, f"run_jobs launches {dec}, expected {exp_dec}")
+    # a prompted job's join primes its lane: one K4 forward per tier
+    require(seq == {"gru_sequence_fwd": C4_JOB_SEEDS * cfg.n_tiers,
+                    "gru_sequence_bwd": 0, "lstm_sequence_fwd": 0,
+                    "lstm_sequence_bwd": 0},
+            f"K4 launches {seq}: one forward per tier per prompted job")
+    require(cod == {"codec_encode": 0, "codec_decode": len(want)},
+            "one K7 decode per job's waveform expected")
+    for jid, w in waves.items():
+        lv = torch.from_numpy(done[jid]).to(dev)
+        require(torch.equal(w, kcodec.mu_law_decode_plain(lv, cfg.q_levels)),
+                f"{jid}: K7's waveform differs from the plain decode")
+    # the pinned jobs against solo B=1 streams on the card
+    for job in jobs:
+        if "stream_key" not in job:
+            continue
+        sg = tgen.StreamingGenerator(params, cfg, 1, temperature=temp,
+                                     stream_keys=job["stream_key"],
+                                     device=dev)
+        sg.set_cond(job["cond"])
+        n = want[job["id"]]
+        solo = torch.cat([sg.emit(chunk)[0] for _ in range(-(-n // chunk))])
+        require(np.array_equal(solo[:n].cpu().numpy(), done[job["id"]]),
+                f"{job['id']} differs from its solo B=1 stream")
+    sub = jobs[:16]
+    on = run_jobs(params, cfg, sub, enqueue_ahead=True, **kw)[0]
+    off = run_jobs(params, cfg, sub, enqueue_ahead=False, **kw)[0]
+    require(all(np.array_equal(on[j["id"]], off[j["id"]]) for j in sub),
+            "enqueue_ahead changed a job's samples")
+    fired = []
+    bad = jobs + [dict(jobs[0])]             # a duplicate id, last
+    try:
+        run_jobs(params, cfg, bad, on_done=lambda j, lv: fired.append(j),
+                 **kw)
+        raised = False
+    except ValueError:
+        raised = True
+    require(raised and not fired, "a bad manifest did not raise before "
+            "the first job")
+    # the same manifest under the profiler (idle share) and sync debug
+    # mode (synchronising calls warn; the drain's event waits, one a
+    # chunk, are explicit)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            times = kernel_times(torch, lambda: run_jobs(
+                params, cfg, jobs, retain_results=False, **kw))
+            pwall = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:80] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    busy = sum(t for t, _ in times.values())
+    n_samples = stats["generated"]
+    print(f"run_jobs, {len(jobs)} jobs ({C4_JOB_KEYS} pinned, "
+          f"{C4_JOB_SEEDS} with prompts) on {n_lanes} lanes, chunks of "
+          f"{chunk}: {wall:.3f} s wall, {n_samples:,} samples "
+          f"({n_samples / wall:,.0f} generated samples/s, "
+          f"{n_samples / wall / 16_000:,.1f}x real time in all), "
+          f"{stats['chunks']} chunks ({wall / stats['chunks'] * 1e3:.1f} ms "
+          f"each), utilization {stats['utilization']:.4f}; profiled run: "
+          f"device busy {busy:.1f} ms of {pwall:.1f} ms (idle share "
+          f"{1 - busy / pwall:.3f} with the profiler on, "
+          f"{1 - busy / (wall * 1e3):.3f} of the unprofiled run); host "
+          f"syncs: {len(syncs) / stats['chunks']:.2f} a chunk in "
+          f"synchronising calls ({len(syncs)} in {stats['chunks']} chunks"
+          f"{': ' + '; '.join(sorted(set(syncs))[:3]) if syncs else ''}) "
+          f"plus 1 event wait a chunk (the drain); pinned jobs equal their "
+          f"solo streams, enqueue-ahead on and off equal on 16 jobs, a bad "
+          f"manifest raised before any job; on {card}")
+    return {**dec, **cod, **seq}
+
+
+def bench_pool_twin(card):
+    """Phase 18: ``python -m samplernn_pase_tpu_torch.scripts.bench_pool``
+    in its own process: the reference's 8 rows, each positive, no skip."""
+    rows = [json.loads(s) for s in run_module(
+        "samplernn_pase_tpu_torch.scripts.bench_pool")]
+    for r in rows:
+        print(json.dumps(r))
+    names = [r.get("metric") for r in rows]
+    want = ["solo_plain_b1_chunk1024", "solo_conditioned_b1_chunk1024"] + [
+        f"pool_serving_n{n}_chunk{c}" for c in (1280, 1024)
+        for n in (8, 32, 128)]
+    require(names == want and all(r["median_ms_per_chunk"] > 0
+                                  for r in rows),
+            f"bench_pool rows {names}, expected {want}")
+    print(f"bench_pool twin on {card}: " + "; ".join(
+        f"{r['metric']} {r['median_ms_per_chunk']} ms" for r in rows))
+    return rows
+
+
+def check_bounds(entries):
+    """No ``kernels`` entry, and no ``by_path`` or ``projection``
+    sub-entry, may read faster than its bound: such a time is a
+    measurement fault.  Raises SmokeFailure naming each."""
+    low = []
+    for e in entries:
+        subs = [(e["name"], e)]
+        subs += [(f"{e['name']}.by_path.{p}", s)
+                 for p, s in e.get("by_path", {}).items()]
+        if "projection" in e:
+            subs.append((f"{e['name']}.projection", e["projection"]))
+        low += [f"{n} ms {s['ms']} < bound_ms {s['bound_ms']}"
+                for n, s in subs if s["ms"] < s["bound_ms"]]
+    require(not low, "kernels entries below their bound: " + "; ".join(low))
 
 
 def run_module(module: str, args=(), timeout: int = 600) -> list[str]:
@@ -2498,7 +3019,7 @@ def main() -> int:
     # ---- 12-14. config 4 through Trainer.run; the measured entry points
     t0 = time.perf_counter()
     try:
-        c4_trainer(torch, dev, exp4, params4, card)
+        c12 = c4_trainer(torch, dev, exp4, params4, card)
         print(f"phase 12 (config 4 through Trainer.run, resume): "
               f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2508,7 +3029,40 @@ def main() -> int:
     print(f"phases 13-14 (quality smoke, bench twins): "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- 15. the result lines ----
+    # ---- 15-18. config 4's TTS pipeline: extraction (config 3's
+    # encoder), joint training, batch synthesis; the bench_pool twin
+    import shutil
+    t0 = time.perf_counter()
+    try:
+        exp3 = load_config(ROOT / "configs" / "c3_pase_extract.json")
+        require(exp3.pase == preset("c3_pase_extract").pase == exp4.pase,
+                "configs 3 and 4 and the presets disagree on the encoder")
+        wav_dir = tts_corpus(exp4.model, exp4.train.seq_len)
+        embs = c3_extraction(torch, dev, exp3.pase, wav_dir, card)
+        print(f"phase 15 (config 3 extraction): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c16 = c4_joint(torch, dev, exp4, wav_dir, card)
+        print(f"phase 16 (config 4 through JointTrainer.run, resume): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c17 = c4_jobs(torch, dev, exp4, params4, embs, card)
+        print(f"phase 17 (run_jobs): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench_pool_twin(card)
+        print(f"phase 18 (bench_pool twin): "
+              f"{time.perf_counter() - t0:.1f} s")
+    except (SmokeFailure, subprocess.TimeoutExpired) as err:
+        return fail(str(err))
+    finally:
+        shutil.rmtree(TTS_WORK, ignore_errors=True)
+    # config 4's paths of phases 7, 8, 12, 16 and 17, and their MLP folds
+    # (one per request or pool, two in phase 7)
+    c4_all = add_counts(add_counts(c4_all, c12), add_counts(c16, c17))
+    c4_folds = 5
+    c4_gen = add_counts(c12, c16)        # generation without lane keys
+
+    # ---- 19. the result lines ----
     # K2 over the decode paths, each case weighted by its launches there
     k2_runs = {"flagship": launches["gemm_bias"],
                "c2_3tier_lstm": c2_launches["gemm_bias"],
@@ -2524,7 +3078,8 @@ def main() -> int:
         {"name": "frame_decode", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:218",
-         "launches": launches["frame_decode"] + s5_all["frame_decode"],
+         "launches": launches["frame_decode"] + s5_all["frame_decode"]
+         + c4_gen["frame_decode"],
          "max_abs_err": err1,
          "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
          "library_ms": None, "us_per_step": ms1 * 1e3 / f1},
@@ -2543,7 +3098,8 @@ def main() -> int:
         {"name": "gru_gates", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gru_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
-         "launches": launches["gru_gates"] + s5_all["gru_gates"],
+         "launches": launches["gru_gates"] + s5_all["gru_gates"]
+         + c4_gen["gru_gates"] + c17["gru_gates"],
          "max_abs_err": err3,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": lms3},
@@ -2554,7 +3110,8 @@ def main() -> int:
          "ms": k6[1], "plain_ms": k6[2], "bound_ms": k6[4],
          "bound_by": k6[5], "library_ms": k6[3]},
         # config 4's modes of the megakernel (megagen.py:196-220 tier_in,
-        # :139-166 and :397-415 host noise), counted over phases 7 and 8
+        # :139-166 and :397-415 host noise), counted over phases 7, 8, 12,
+        # 16 and 17
         {"name": "gemm_bias_cond", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
@@ -2563,11 +3120,11 @@ def main() -> int:
          "bound_ms": k2c["bound"], "bound_by": max(k2c["by"],
                                                    key=k2c["by"].get),
          "library_ms": k2c["lib"],
-         # the other K2 launches of phases 7-8: per tier step 3 more
-         # than the conditioned input, and two MLP folds
+         # the other K2 launches of those phases: per tier step 3 more
+         # than the conditioned input, and the MLP folds
          "projection": {"launches": c4_all["gemm_bias"]
                         - 4 * c4_all["gemm_bias_cond"]
-                        - 2 * exp4.model.frame_sizes[0],
+                        - c4_folds * exp4.model.frame_sizes[0],
                         "max_abs_err": k2p["err"], "ms": k2p["ms"],
                         "plain_ms": k2p["plain"], "bound_ms": k2p["bound"],
                         "library_ms": k2p["lib"]}},
@@ -2585,7 +3142,8 @@ def main() -> int:
         {"name": f"codec_{d}", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/codec.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/codec.py:35",
-         "launches": s5_launches[f"codec_{d}"],
+         "launches": s5_launches[f"codec_{d}"] + c4_gen[f"codec_{d}"]
+         + c17[f"codec_{d}"],
          "max_abs_err": k7[d]["err"], "ms": k7[d]["ms"],
          "plain_ms": k7[d]["plain"], "bound_ms": k7[d]["bound"],
          "bound_by": k7[d]["by"], "library_ms": None}
@@ -2616,13 +3174,18 @@ def main() -> int:
          "bound_by": max(st[d]["by"], key=st[d]["by"].get),
          "library_ms": st[d]["lib"]}
         for cell, st, seq_launches, tiers, nb in (
-            ("gru", k4, add_counts(k4_launches, s5_train), "64 and 16",
+            ("gru", k4, add_counts(add_counts(k4_launches, s5_train),
+                                   add_counts(c4_gen, c17)), "64 and 16",
              BATCH),
             ("lstm", k5, k5_launches, "64, 16 and 4",
              exp2.train.batch_size))
         for d in ("fwd", "bwd")
     ]}
     print(json.dumps(line))
+    try:
+        check_bounds(line["kernels"])
+    except SmokeFailure as err:
+        return fail(str(err))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,10 @@ are, so conversion is a copy of each leaf:
 * weight-norm leaves stay ``{"v", "g"}`` dicts, resolved at use;
 * biases keep their shapes (``b_up`` is ``[frame_size, dim]``);
 * tier states stay ``[n_rnn, B, dim]`` (GRU) or ``[n_rnn, 2, B, dim]``
-  (LSTM), one array per tier, bottom tier first.
+  (LSTM), one array per tier, bottom tier first;
+* PASE conv weights stay ``[out, in, k]`` (both frameworks' layout) and
+  its BatchNorm state ``{"mean", "var", "count"}`` keeps the 0-d float32
+  ``count``.
 
 The arguments are trees of numpy arrays (``jax.device_get`` of the JAX
 params), so this module needs neither JAX nor the JAX package.
@@ -33,6 +36,21 @@ def params_from_jax(tree, device="cpu") -> dict:
     """JAX parameter pytree ``{"tiers": [...], "mlp": {...}}`` of numpy
     arrays -> the port's dict of tensors on ``device``, same structure."""
     return tree_map(_leaf_to_torch(device), tree)
+
+
+def pase_from_jax(params, bn_state, device="cpu") -> tuple:
+    """The JAX package's PASE encoder ``(params, bn_state)`` -> the port's
+    two trees on ``device``."""
+    return params_from_jax(params, device), params_from_jax(bn_state, device)
+
+
+def joint_from_jax(params, bn_state, device="cpu") -> tuple:
+    """A joint model's ``({"srnn": ..., "pase": ...}, bn_state)`` -> the
+    port's two trees on ``device``."""
+    if set(params) != {"srnn", "pase"}:
+        raise ValueError(f"a joint tree has keys srnn and pase, got "
+                         f"{sorted(params)}")
+    return pase_from_jax(params, bn_state, device)
 
 
 def state_from_jax(states, device="cpu") -> tuple:

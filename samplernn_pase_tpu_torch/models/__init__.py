@@ -1,2 +1,2 @@
-"""SampleRNN model modules in plain PyTorch, mirroring
-``samplernn_pase_tpu.models`` function for function."""
+"""SampleRNN model modules and the PASE encoder in plain PyTorch,
+mirroring ``samplernn_pase_tpu.models`` function for function."""

@@ -32,6 +32,15 @@ The lifecycle updates build new state, window and counter tensors rather
 than writing in place (the window an emit carries is a view of the levels
 it returned, which the caller still holds); the conditioning buffer, which
 no output views, is updated in place to save a copy of it per join.
+A join's host arrays (conditioning rows, stream key) reach the card
+through pinned memory without blocking the host, so a join does not wait
+for the chunks already queued (a join with a prompt does: ``prime`` copies
+its levels and rows and runs the model on them).
+
+``run_jobs`` drains a manifest of variable-length jobs through one pool
+(continuous batching), enqueue-ahead: chunk t+1 is launched before chunk
+t is read, and each chunk is copied into pinned host memory behind its
+own launch, so reading it waits for that copy only.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 
 from samplernn_pase_tpu_torch import generate as gen
 from samplernn_pase_tpu_torch.config import SampleRNNConfig
+from samplernn_pase_tpu_torch.data.dataset import device_put_batch
 from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import samplernn
 from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
@@ -65,7 +75,9 @@ def _pool_join(params, cfg, states, hist, lane: int, lane_keys, noise_pos,
         lane_keys = lane_keys.clone()
         lane_keys[lane] = stream_key
         noise_pos = noise_pos.clone()
-        noise_pos[lane] = 0
+        # fill_, not ``[lane] = 0``: assigning a number to one element
+        # copies it from the host and waits for the card
+        noise_pos[lane].fill_(0)
     if cond_dev is not None:
         if spk is not None:
             # folded once; the solo generator adds it per emit, and the
@@ -73,7 +85,7 @@ def _pool_join(params, cfg, states, hist, lane: int, lane_keys, noise_pos,
             cond_dev = cond_dev + params["speaker"][spk]
         cond_buf[lane] = cond_dev              # in place, see above
         cursors = cursors.clone()
-        cursors[lane] = 0
+        cursors[lane].fill_(0)
     return states, hist, lane_keys, noise_pos, cursors, cond_buf
 
 
@@ -236,14 +248,14 @@ class StreamPool:
         if self.temperature is not None:
             words = (stream_key if stream_key is not None
                      else lane_key(self.seed, lane, self._epochs[lane]))
-            skey = torch.from_numpy(words.astype(np.int64)).to(self.device)
+            skey = device_put_batch(words.astype(np.int64), self.device)
         self._epochs[lane] += 1
         cond_dev = spk = None
         if self.cfg.cond_dim:
             self._ensure_cap(cond.shape[0])
             self._cond_len[lane] = cond.shape[0]
-            cond_dev = torch.from_numpy(
-                gen.fit_cond_stream(cond, self._f_cap)).to(self.device)
+            cond_dev = device_put_batch(
+                gen.fit_cond_stream(cond, self._f_cap), self.device)
         if self.cfg.n_speakers:
             self._speakers[lane] = int(speaker)
             spk = int(speaker)
@@ -300,8 +312,8 @@ class StreamPool:
                 f"got {rows.shape}")
         ln, k = self._cond_len[lane], rows.shape[0]
         self._ensure_cap(ln + k)
-        rows_dev = torch.from_numpy(
-            gen.fit_cond_stream(rows, gen.next_pow2(k))).to(self.device)
+        rows_dev = device_put_batch(
+            gen.fit_cond_stream(rows, gen.next_pow2(k)), self.device)
         spk = int(self._speakers[lane]) if self.cfg.n_speakers else None
         self._cond_buf = _pool_extend(self.params, self._cond_buf, lane, ln,
                                       rows_dev, spk)
@@ -339,6 +351,174 @@ class StreamPool:
 
     def emit_waveform(self, n_samples: int) -> torch.Tensor:
         return gen.decode_waveform(self.emit(n_samples), self.cfg)
+
+
+def host_copy(levels: torch.Tensor):
+    """Start copying ``levels`` to the host without waiting: (host tensor,
+    event).  On CUDA the host tensor is pinned and the copy is queued on
+    the current stream behind the work that produces ``levels``;
+    ``host_wait`` then waits for that copy only, not for work queued
+    after it (``.cpu()`` issued later would wait for all of it)."""
+    if levels.device.type != "cuda":
+        return levels, None
+    host = torch.empty(levels.shape, dtype=levels.dtype, pin_memory=True)
+    host.copy_(levels, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def host_wait(copy) -> np.ndarray:
+    """The numpy array of a ``host_copy`` once its copy has landed."""
+    host, done = copy
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+def _check_job(job, cfg, temperature) -> dict:
+    """One manifest entry validated, with ``n_samples`` resolved."""
+    n = job.get("n_samples")
+    if n is None:
+        if job.get("cond") is None:
+            raise ValueError(
+                f"job {job['id']!r}: n_samples is required when no cond "
+                "stream is given")
+        n = int(np.shape(job["cond"])[0]) * cfg.cond_rate
+    if int(n) < 1:
+        raise ValueError(f"job {job['id']!r}: n_samples must be >= 1")
+    if job.get("stream_key") is not None:
+        if temperature is None:
+            # the pool would refuse it too, but only when the job claims a
+            # lane, possibly after earlier jobs streamed out
+            raise ValueError(
+                f"job {job['id']!r}: stream_key on a greedy run "
+                "(temperature=None) — there is no sampling noise to pin")
+        if np.shape(_host(job["stream_key"], None)) != (2,):
+            raise ValueError(f"job {job['id']!r}: stream_key must be [2] "
+                             "uint32 words (noise.lane_key)")
+    if job.get("seed_cond") is not None and job.get("seed_levels") is None:
+        raise ValueError(f"job {job['id']!r}: seed_cond without seed_levels")
+    return dict(job, n_samples=int(n))
+
+
+def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
+             chunk: int | None = None, temperature: float | None = 1.0,
+             seed: int = 0, use_kernels: bool | str | None = None,
+             max_cond_frames: int = 1024, enqueue_ahead: bool = True,
+             on_done=None, retain_results: bool = True, device=None):
+    """Continuous-batching batch synthesis: drain a list of variable-length
+    jobs through one :class:`StreamPool` of ``n_lanes`` lanes, one
+    generation call per chunk for all lanes.  Each job claims a free lane,
+    runs for its own length and frees the slot at a chunk boundary, so no
+    lane waits for the longest job of a fixed batch.
+
+    Every job's length is known at its start, so the join/leave schedule
+    is fixed in chunk indices and the loop runs enqueue-ahead (with
+    ``enqueue_ahead``): chunk t+1 is launched before chunk t is read (the
+    pool's lifecycle builds new state tensors, so a join never races a
+    queued chunk).  Each chunk goes to pinned host memory behind its own
+    launch (``host_copy``), and reading it waits for that copy alone.
+
+    jobs: dicts with the keys (all optional unless noted)
+      ``id``          result key (default: the index)
+      ``n_samples``   samples to generate; required unless ``cond`` is
+                      given, which sets it to ``cond_rows * cfg.cond_rate``
+      ``cond``        [frames, cond_dim] conditioning stream
+      ``speaker``     int id (required iff the model has n_speakers)
+      ``seed_levels`` [L] int prompt the lane continues (``n_samples``
+                      counts the continuation only)
+      ``seed_cond``   [frames, cond_dim] rows covering the prompt
+      ``stream_key``  [2] uint32 words pinning the job's sampling noise (a
+                      solo ``StreamingGenerator(stream_keys=key)``
+                      reproduces the job bit for bit)
+
+    The whole manifest is validated before any work starts.  Returns
+    ``(results, stats)``: results maps id -> int32 [n_samples] levels
+    (``generate.decode_waveform`` makes audio of them); stats has ``jobs``,
+    ``chunks`` (generation calls), ``chunk`` (samples per lane per call),
+    ``lanes``, ``generated`` (requested samples), ``dispatched`` (lane
+    samples computed), ``utilization`` (their ratio) and ``wall_s``.
+    ``on_done(id, levels)`` fires as each job's last chunk is read;
+    ``retain_results=False`` keeps no audio (results is empty) for a
+    consumer that streams jobs out through ``on_done``."""
+    import time
+
+    jobs = list(jobs)
+    chunk = int(chunk) if chunk else cfg.lookback
+    if chunk % cfg.lookback:
+        raise ValueError(f"chunk ({chunk}) must be a multiple of lookback "
+                         f"({cfg.lookback})")
+    queue = [_check_job(dict(job, id=job.get("id", i)), cfg, temperature)
+             for i, job in enumerate(jobs)]
+    ids = [j["id"] for j in queue]
+    if len(set(ids)) != len(ids):
+        raise ValueError("job ids must be unique")
+    want = {j["id"]: j["n_samples"] for j in queue}
+    requested = sum(want.values())
+    queue.reverse()                       # pop() takes jobs in order
+
+    pool = StreamPool(params, cfg, n_lanes=n_lanes, temperature=temperature,
+                      seed=seed, use_kernels=use_kernels,
+                      max_cond_frames=max_cond_frames, device=device)
+    results: dict = {}
+    pieces: dict = {}                     # id -> [numpy chunk, ...]
+    got: dict = {}                        # id -> samples read so far
+    active: dict = {}                     # lane -> [id, samples to launch]
+    inflight: list = []                   # [(host_copy, {lane: id})]
+    depth = 1 if enqueue_ahead else 0
+    n_chunks = 0
+
+    def drain(entry):
+        copy, snapshot = entry
+        arr = host_wait(copy)
+        for lane, jid in snapshot.items():
+            # a copy: arr[lane] is a view of the whole batch, which one
+            # long job would otherwise keep alive for its lifetime
+            pieces[jid].append(arr[lane].copy())
+            got[jid] += chunk
+            if got[jid] >= want[jid]:
+                out = np.concatenate(pieces.pop(jid))[:want[jid]]
+                if retain_results:
+                    results[jid] = out
+                if on_done is not None:
+                    on_done(jid, out)
+
+    t0 = time.perf_counter()
+    while queue or active:
+        while queue and len(pool.active) < pool.n:
+            job = queue.pop()
+            lane = pool.start(
+                cond=job.get("cond"), speaker=job.get("speaker"),
+                seed_levels=job.get("seed_levels"),
+                seed_cond=job.get("seed_cond"),
+                stream_key=job.get("stream_key"))
+            active[lane] = [job["id"], job["n_samples"]]
+            pieces[job["id"]], got[job["id"]] = [], 0
+        snapshot = {lane: jid for lane, (jid, _) in active.items()}
+        levels = pool.emit(chunk)
+        n_chunks += 1
+        # lanes whose jobs end with this chunk free their slot now (stop()
+        # is bookkeeping; the queued chunk keeps the state it was launched
+        # with), so the next joins need not wait for it to be read
+        for lane in list(active):
+            active[lane][1] -= chunk
+            if active[lane][1] <= 0:
+                pool.stop(lane)
+                del active[lane]
+        inflight.append((host_copy(levels), snapshot))
+        while len(inflight) > depth:
+            drain(inflight.pop(0))
+    for entry in inflight:
+        drain(entry)
+    dispatched = n_chunks * chunk * n_lanes
+    stats = {
+        "jobs": len(jobs), "chunks": n_chunks, "chunk": chunk,
+        "lanes": n_lanes, "generated": requested, "dispatched": dispatched,
+        "utilization": requested / dispatched if n_chunks else 0.0,
+        "wall_s": time.perf_counter() - t0,
+    }
+    return results, stats
 
 
 def _host(x, dtype=np.float32) -> np.ndarray:

@@ -36,6 +36,23 @@ def _to_cpu(tree):
                     if isinstance(t, torch.Tensor) else t, tree)
 
 
+def _place(restored, template):
+    """``restored`` with each leaf on the device and in the dtype of the
+    template's leaf at its place; a leaf the template lacks (a tree
+    written by an older layout) stays as it was loaded."""
+    if isinstance(restored, dict):
+        t = template if isinstance(template, dict) else {}
+        return {k: _place(v, t.get(k)) for k, v in restored.items()}
+    if isinstance(restored, (list, tuple)):
+        t = (template if isinstance(template, (list, tuple))
+             and len(template) == len(restored) else [None] * len(restored))
+        return type(restored)(_place(r, u) for r, u in zip(restored, t))
+    if isinstance(restored, torch.Tensor) and isinstance(template,
+                                                         torch.Tensor):
+        return restored.to(template.device, template.dtype)
+    return restored
+
+
 def _atomic_write(path: Path, write):
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
     write(tmp)
@@ -107,7 +124,7 @@ class CheckpointManager:
         "params", "opt_state", "hiddens" (a tuple), "cursor" (an int64
         numpy array) and "step"; None when there is none.  Without a
         template the tensors are on the CPU; with one, each leaf takes the
-        device and dtype of the template's leaf at its place."""
+        device and dtype of the template's leaf at its place (``_place``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -118,10 +135,7 @@ class CheckpointManager:
         if template is not None:
             for key in ("params", "opt_state", "hiddens"):
                 if key in restored and template.get(key) is not None:
-                    restored[key] = tree_map(
-                        lambda r, t: r.to(t.device, t.dtype)
-                        if isinstance(t, torch.Tensor) else r,
-                        restored[key], type(restored[key])(template[key]))
+                    restored[key] = _place(restored[key], template[key])
         if restored.get("hiddens") is not None:
             restored["hiddens"] = tuple(restored["hiddens"])
         restored["step"] = int(step)
