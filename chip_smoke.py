@@ -138,7 +138,24 @@ Phases (any failure ends the run with a non-zero exit):
    wall time, samples/s, utilization, idle share and host syncs a chunk;
 18. the bench_pool twin (python -m samplernn_pase_tpu_torch.scripts.
    bench_pool) in its own process: its 8 rows, positive, no skip;
-19. a {"kernels": [...]} line (launch counts over phases 3-17's main
+19. config 4's TTS pipeline through the command line
+   (samplernn_pase_tpu_torch.cli.main with --platform cuda, in this
+   process, over phase 15's wavs): extract with the default encoder
+   (config 3's); train --joint with configs/c4_tts_conditioned.json for
+   one epoch, then --resume to two (config.json, "resumed at step N",
+   the logged steps, a falling NLL, exact K4 and K7 launches); evaluate
+   on val, also in its own process (equal JSON), and on train at full
+   batch and at batch 1 (coverage 1.0, NLLs within 1e-3 bits, host syncs
+   a batch in sync debug mode); extract --ckpt; generate at the config's
+   128 x 16,000 conditioned on a wav (exact launches) and 4 greedy lanes
+   continuing a seed wav (equal to each other and to one lane primed and
+   generated in process); stream with --stream-key 7 enqueue-ahead,
+   --blocked and at 2 chunks a call (bit-equal, and equal to a
+   StreamPool lane started with the same words); serve over the
+   extracted embeddings on 128 lanes (each job's length, exact launches)
+   and a mixed manifest (its stream_key 7 job equal to the stream), and
+   a bad manifest exiting before any wav;
+20. a {"kernels": [...]} line (launch counts over phases 3-19's main
    paths), which fails the run if any entry, or any by_path or
    projection sub-entry, reads faster than its bound_ms; then the last
    line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -2282,7 +2299,7 @@ def c4_joint(torch, dev, exp, wav_dir, card):
     against the scan route; the encoder's share of a step's device time,
     what its deterministic convolutions cost, and the kernels one joint
     step launches beside the plain conditioned step's.  Returns the run's
-    launch counts, or raises SmokeFailure."""
+    launch counts and its ms a step, or raises SmokeFailure."""
     import dataclasses
 
     from samplernn_pase_tpu_torch.data import native_loader
@@ -2383,7 +2400,7 @@ def c4_joint(torch, dev, exp, wav_dir, card):
                      f"device time, {cuda_ms(torch, fn, 5):.2f} ms a call")
     print("config 4 one train step (torch.profiler; CUDA events): "
           + "; ".join(parts))
-    return launches
+    return launches, step_ms
 
 
 def c4_jobs(torch, dev, exp, params, embs, card):
@@ -2548,6 +2565,465 @@ def bench_pool_twin(card):
     print(f"bench_pool twin on {card}: " + "; ".join(
         f"{r['metric']} {r['median_ms_per_chunk']} ms" for r in rows))
     return rows
+
+
+CLI_WORK = TTS_WORK / "cli"   # phase 19's experiment, embeddings and audio
+STREAM_KEY = 7                 # phase 19's pinned stream
+
+
+class Verbs:
+    """Phase 19's runner: ``cli.main(["--platform", "cuda", verb, ...])``
+    in this process, its stdout and stderr captured, the kernel launches
+    and the MLP folds (``generate.prepare_weights`` calls) of each verb
+    counted and summed over the phase.  A ``SystemExit`` or an exception
+    in a verb fails the phase."""
+
+    def __init__(self, torch):
+        from samplernn_pase_tpu_torch import generate as tgen
+        from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+        from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+        from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+        self.torch, self.tgen = torch, tgen
+        self.counters = (kdec, kcodec, rt)
+        self.total, self.folds, self.wall = {}, 0, {}
+        self.uncond_k2 = 0      # K2 tier-step launches without cond rows
+        self._prepare = tgen.prepare_weights
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self._n_folds += 1
+            return self._prepare(*args, **kwargs)
+        self._n_folds = 0
+        self.tgen.prepare_weights = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.tgen.prepare_weights = self._prepare
+
+    def __call__(self, verb, *argv, tag=None):
+        """(seconds, stdout, stderr, launches) of one verb."""
+        import contextlib
+        import io
+
+        from samplernn_pase_tpu_torch import cli
+        for c in self.counters:
+            c.reset_launches()
+        folds = self._n_folds
+        out, err = io.StringIO(), io.StringIO()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                cli.main(["--platform", "cuda", verb, *map(str, argv)])
+        except SystemExit as exc:
+            raise SmokeFailure(f"cli {verb} exited ({exc}): "
+                               f"{err.getvalue()[-3000:]}") from exc
+        self.torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = {k: v for c in self.counters for k, v in c.LAUNCHES.items()}
+        self.total = add_counts(self.total, n)
+        self.folds += self._n_folds - folds
+        self.wall[tag or verb] = dt
+        return dt, out.getvalue(), err.getvalue(), n
+
+
+def pcm(path):
+    """A wav file's int16 samples."""
+    import wave
+
+    import numpy as np
+    with wave.open(str(path)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def check_counts(n: dict, want: dict, what: str):
+    """The launch counts ``n`` hold ``want``, and every other kernel of
+    theirs launched no time."""
+    got = {k: v for k, v in n.items() if v or k in want}
+    full = {k: want.get(k, 0) for k in got}
+    require(got == full and all(n.get(k, 0) == v for k, v in want.items()),
+            f"{what}: launches { {k: v for k, v in n.items() if v} }, "
+            f"expected {want}")
+
+
+def c4_cli(torch, dev, exp3, wav_dir, card, joint_ms):
+    """Phase 19: config 4's TTS pipeline driven verb by verb through
+    ``samplernn_pase_tpu_torch.cli.main`` on the card, over phase 15's
+    wavs: ``extract`` (the default encoder, which is config 3's),
+    ``train --joint`` with config 4's file for one epoch and again with
+    ``--resume`` to two, ``evaluate`` (val in process and in its own
+    process, train at full batch and at batch 1, under sync debug mode),
+    ``extract --ckpt``, ``generate`` (128 x 16,000 conditioned on a wav;
+    4 greedy lanes continuing a seed wav), ``stream`` three ways with a
+    pinned key and ``serve`` (the extracted embeddings at 128 lanes, then
+    a mixed manifest, then a bad one).  Checks exact launch counts,
+    config.json, the resume, the NLL, coverage and the tail passes, the
+    seeded lanes against an in-process generation, the streams against
+    each other and a StreamPool lane, and the keyed job against the
+    stream.  Returns (launch counts of the verbs, MLP folds, K2 launches
+    of tier steps decoded without conditioning rows), or raises
+    SmokeFailure."""
+    import dataclasses
+    import math
+    import re
+    import shutil
+    import warnings
+
+    import numpy as np
+
+    from samplernn_pase_tpu_torch import config as C
+    from samplernn_pase_tpu_torch import extract
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.data.dataset import (
+        WavCorpus, _quantize_host)
+    from samplernn_pase_tpu_torch.models.pase import absorb_legacy_bias
+    from samplernn_pase_tpu_torch.ops.audio_io import read_wav, write_wav
+    from samplernn_pase_tpu_torch.ops.kernels.noise import int_key
+    from samplernn_pase_tpu_torch.serve import StreamPool
+    from samplernn_pase_tpu_torch.train.checkpoint import CheckpointManager
+    from samplernn_pase_tpu_torch.tree import tree_map
+
+    c4_file = ROOT / "configs" / "c4_tts_conditioned.json"
+    file_exp = C.load_config(c4_file)      # what the CLI reads
+    cfg, tc = file_exp.model, file_exp.train
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    CLI_WORK.mkdir(parents=True)
+    exp_dir, emb1, emb2 = (CLI_WORK / "exp", CLI_WORK / "emb",
+                           CLI_WORK / "emb_joint")
+    files = sorted(wav_dir.glob("**/*.wav"))
+    wavs = {f: read_wav(f)[0] for f in files}
+    wav0 = files[0]
+    audio_s = sum(len(x) for x in wavs.values()) / 16_000
+    zero4 = {"gru_sequence_fwd": 0, "gru_sequence_bwd": 0}
+    with Verbs(torch) as verb:
+        # ---- extract: config 3's encoder is PASEConfig(), the default
+        require(C.PASEConfig() == exp3.pase,
+                "PASEConfig() differs from configs/c3_pase_extract.json's "
+                "pase section")
+        dt, _, _, n = verb("extract", "--dataset", wav_dir, "--out", emb1,
+                           "--batch_size", EXTRACT_BATCH)
+        check_counts(n, {}, "extract")
+        embs = {}
+        for f in files:
+            e = np.load(emb1 / f.relative_to(wav_dir).with_suffix(".npy"))
+            require(e.shape == (len(wavs[f]) // 160, 256)
+                    and np.isfinite(e).all(), f"extract: {f.name} {e.shape}")
+            embs[f] = e
+        print(f"cli extract: {len(files)} wavs, {audio_s:.1f} s of audio, "
+              f"{dt:.2f} s wall ({audio_s / dt:.1f} s of audio per s); "
+              f"the tree mirrored, len // 160 rows of 256, finite")
+
+        # ---- train --joint, then --resume to a second epoch
+        corpus = WavCorpus.from_folder(wav_dir)
+        steps = len(corpus.batcher("train", tc.batch_size, tc.seq_len,
+                                   cfg.lookback, cfg.cond_rate))
+        val_steps = len(corpus.batcher("val", tc.batch_size, tc.seq_len,
+                                       cfg.lookback, cfg.cond_rate))
+        metrics = exp_dir / "metrics.jsonl"
+        seen, runs = 0, []
+        for epochs in (1, 2):
+            extra = ["--resume"] if epochs == 2 else []
+            dt, _, err, n = verb(
+                "train", "--config", c4_file, "--dataset", wav_dir,
+                "--exp-dir", exp_dir, "--joint", "--epochs", epochs,
+                *extra, tag=f"train epochs {epochs}")
+            want_cfg = C.to_json(dataclasses.replace(file_exp, train=(
+                dataclasses.replace(tc, exp_dir=str(exp_dir),
+                                    epochs=epochs))))
+            require((exp_dir / "config.json").read_text() == want_cfg,
+                    f"train: config.json is not the config file with "
+                    f"--exp-dir and --epochs {epochs} applied")
+            if epochs == 2:
+                m = re.search(r"resumed at step (\d+)", err)
+                require(m is not None and int(m.group(1)) == steps,
+                        f"train --resume: no 'resumed at step {steps}' in "
+                        f"its output")
+            lines = [json.loads(s)
+                     for s in metrics.read_text().splitlines()]
+            new, seen = lines[seen:], len(lines)
+            n_val = sum(d.get("split") == "val" for d in new) * val_steps
+            check_counts(n, {"gru_sequence_fwd": 2 * (steps + n_val),
+                             "gru_sequence_bwd": 2 * steps,
+                             "codec_decode": steps + n_val},
+                         f"train --epochs {epochs}")
+            runs.append((dt, new, n_val))
+        train = [d for d in lines if d.get("split") == "train"]
+        val = [d["nll_bits"] for d in lines if d.get("split") == "val"]
+        require([d["step"] for d in train] == list(
+            range(0, 2 * steps, tc.log_every_steps)),
+            f"train: logged steps {[d['step'] for d in train]}")
+        nll = [d["nll_bits"] for d in train]
+        require(all(math.isfinite(v) for v in nll + val) and nll[-1] < nll[0],
+                f"train: NLL {nll} (val {val})")
+        b, t = tc.batch_size, tc.seq_len
+        step_ms = {d["step"]: b * t / d["samples_per_sec"] * 1e3
+                   for d in train}
+        print(f"cli train --joint (B={b}, seq_len {t}, steps_per_call "
+              f"{tc.steps_per_call}): {steps} steps an epoch, validation "
+              f"{val_steps} steps; epoch 1 {runs[0][0]:.1f} s wall, "
+              f"--resume to epoch 2 {runs[1][0]:.1f} s wall (resumed at "
+              f"step {steps}); logged train NLL "
+              + ", ".join(f"{v:.4f}" for v in nll) + "; val NLL "
+              + ", ".join(f"{v:.4f}" for v in val) + "; ms a step at the "
+              "logged steps " + ", ".join(f"{s}: {v:.2f}" for s, v in
+                                         step_ms.items())
+              + f" (JointTrainer.run, phase 16: {joint_ms:.2f}); K4 and K7 "
+              f"launches exact over {runs[0][2] // val_steps} and "
+              f"{runs[1][2] // val_steps} validations")
+
+        # ---- evaluate: val in process and in its own process
+        ev = ["--ckpt", exp_dir, "--dataset", wav_dir]
+        dt, out, _, n = verb("evaluate", *ev, "--split", "val",
+                             tag="evaluate val")
+        rep = json.loads(out.strip().splitlines()[-1])
+        t0 = time.perf_counter()
+        rep2 = json.loads(run_module("samplernn_pase_tpu_torch.cli", [
+            "--platform", "cuda", "evaluate", *map(str, ev), "--split",
+            "val"])[-1])
+        dt_proc = time.perf_counter() - t0
+        require(rep == rep2, f"evaluate val: {rep} in process, {rep2} in "
+                "its own process")
+        require(rep["batch_size"] == 1 and rep["held_out"]
+                and rep["coverage"] == 1.0 and rep["conditioning"] == "joint",
+                f"evaluate val: {rep}")
+        check_counts(n, {"gru_sequence_fwd": 2 * rep["batches"],
+                         "gru_sequence_bwd": 0,
+                         "codec_decode": rep["batches"]}, "evaluate val")
+        # train split at full batch and at batch 1, under sync debug mode
+        reps, syncs = {}, {}
+        for bs in (tc.batch_size, 1):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dt, out, _, n = verb("evaluate", *ev, "--split", "train",
+                                         "--batch_size", bs,
+                                         tag=f"evaluate train batch {bs}")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            reps[bs] = r = json.loads(out.strip().splitlines()[-1])
+            syncs[bs] = sum("called a synchronizing" in str(w.message)
+                            for w in caught)
+            require(r["batch_size"] == bs and r["coverage"] == 1.0
+                    and r["conditioning"] == "joint"
+                    and r["held_out"] is False, f"evaluate train: {r}")
+            check_counts(n, {"gru_sequence_fwd": 2 * r["batches"],
+                             "gru_sequence_bwd": 0,
+                             "codec_decode": r["batches"]},
+                         f"evaluate train batch {bs}")
+        full, one = reps[tc.batch_size], reps[1]
+        d_nll = abs(full["nll_bits"] - one["nll_bits"])
+        per_batch = ((syncs[1] - syncs[tc.batch_size])
+                     / (one["batches"] - full["batches"]))
+        print(f"cli evaluate: val {rep} ({verb.wall['evaluate val']:.2f} s "
+              f"in process, {dt_proc:.1f} s in its own process, equal "
+              f"JSON); train at batch {tc.batch_size}: {full} "
+              f"({verb.wall[f'evaluate train batch {tc.batch_size}']:.2f} "
+              f"s), at batch 1: {one} "
+              f"({verb.wall['evaluate train batch 1']:.2f} s); |full - "
+              f"one lane| = {d_nll:.2e} bits (bound 1e-3); host syncs "
+              f"(sync debug mode): {syncs[tc.batch_size]} in "
+              f"{full['batches']} batches and {syncs[1]} in "
+              f"{one['batches']}, {per_batch:.3f} a batch")
+        require(full["samples"] == one["samples"] and d_nll <= 1e-3,
+                "evaluate: the full-batch NLL differs from the one-lane "
+                "NLL")
+
+        # ---- extract with the jointly trained encoder
+        verb("extract", "--dataset", wav_dir, "--out", emb2, "--ckpt",
+             exp_dir, "--batch_size", EXTRACT_BATCH, tag="extract --ckpt")
+        for f in files:
+            e = np.load(emb2 / f.relative_to(wav_dir).with_suffix(".npy"))
+            require(e.shape == embs[f].shape and np.isfinite(e).all()
+                    and not np.array_equal(e, embs[f]),
+                    f"extract --ckpt: {f.name} equals the default "
+                    "encoder's or is not finite")
+
+        # ---- generate: config 4's defaults, conditioned on a wav
+        gcfg = file_exp.generate
+        gen_dir = CLI_WORK / "gen"
+        dt, _, _, n = verb("generate", "--ckpt", exp_dir, "--out", gen_dir,
+                           "--cond-wav", wav0)
+        outs = sorted(gen_dir.glob("gen_*.wav"))
+        require(len(outs) == gcfg.n_seqs and all(
+            read_wav(o)[0].shape == (gcfg.length,) for o in outs),
+            f"generate: {len(outs)} wavs")
+        want = decode_launches(cfg, gcfg.length)
+        want["gemm_bias"] += cfg.frame_sizes[0]        # the MLP fold
+        check_counts(n, {**want, **zero4, "codec_decode": 1}, "generate")
+        gen_sps = gcfg.n_seqs * gcfg.length / dt
+        print(f"cli generate: {gcfg.n_seqs} x {gcfg.length} samples at "
+              f"T={gcfg.temperature}, conditioned on {wav0.name}: {dt:.2f} "
+              f"s wall, {gen_sps:,.0f} samples/s (restore, embedding, "
+              f"generation, K7 decode and {gcfg.n_seqs} wav files); "
+              f"launches exact")
+        # four greedy lanes continuing a seed wav, against one lane primed
+        # and generated here
+        seed_dir = CLI_WORK / "gen_seed"
+        dt, _, _, n = verb("generate", "--ckpt", exp_dir, "--out", seed_dir,
+                           "--n_seqs", 4, "--length", 4096, "--seed-wav",
+                           wav0, "--temperature", 0, tag="generate seeded")
+        # no --cond-wav: the lanes decode without conditioning rows
+        want = decode_launches(dataclasses.replace(cfg, cond_dim=0), 4096)
+        verb.uncond_k2 += want["gemm_bias"]
+        want["gemm_bias"] += cfg.frame_sizes[0]
+        check_counts(n, {**want, "gru_sequence_fwd": cfg.n_tiers,
+                         "gru_sequence_bwd": 0, "codec_decode": 1},
+                     "generate --seed-wav")
+        lanes = [pcm(seed_dir / f"gen_{i:03d}.wav") for i in range(4)]
+        exp = C.load_config(exp_dir / "config.json")
+        payload = CheckpointManager(exp_dir / "ckpt").restore()["params"]
+        params = tree_map(lambda v: v.to(dev), payload["joint"]["srnn"])
+        pp, bn, _ = absorb_legacy_bias(payload["joint"]["pase"],
+                                       payload["bn"])
+        emb0 = extract.extract_embeddings(pp, bn, exp.pase, [wavs[wav0]],
+                                          device=dev)[0]
+        lv = _quantize_host(wavs[wav0], cfg.q_levels, cfg.codec)
+        states, hist = tgen.prime(params, cfg, lv[None], cond=emb0[None],
+                                  device=dev)
+        one_lane = tgen.generate_levels(params, cfg, 1, 4096, None,
+                                        initial_states=states, hist=hist,
+                                        device=dev)
+        write_wav(CLI_WORK / "seed_ref.wav", tgen.decode_waveform(
+            one_lane, cfg)[0].cpu().numpy())
+        ref = pcm(CLI_WORK / "seed_ref.wav")
+        require(all(np.array_equal(x, ref) for x in lanes),
+                "generate --seed-wav: the 4 greedy lanes differ from each "
+                "other or from one lane primed and generated in process")
+        print(f"cli generate --seed-wav, 4 greedy lanes of 4096: {dt:.2f} s "
+              f"wall; the lanes equal each other and one lane primed and "
+              f"generated in process ({len(lv)} seed samples)")
+
+        # ---- stream: a pinned key, three loops
+        sargs = ["--ckpt", exp_dir, "--cond-wav", wav0, "--seconds", 2,
+                 "--stream-key", STREAM_KEY, "--temperature", 1.0]
+        streams, lat = {}, {}
+        for tag, extra in (("enqueue-ahead", ["--chunk-ms", 64]),
+                           ("blocked", ["--chunk-ms", 64, "--blocked"]),
+                           ("chunks-per-call 2", ["--chunk-ms", 128,
+                                                  "--chunks-per-call", 2])):
+            path = CLI_WORK / f"stream_{len(streams)}.wav"
+            dt, _, err, _ = verb("stream", "--out", path, *sargs, *extra,
+                                 tag=f"stream {tag}")
+            streams[tag] = pcm(path)
+            line = [s for s in err.splitlines() if s.startswith("[stream]")]
+            m = re.search(r"median ([\d.]+) ms/chunk, worst ([\d.]+) ms",
+                          line[-1] if line else "")
+            require(m is not None, f"stream {tag}: no latency line")
+            lat[tag] = (float(m.group(1)), float(m.group(2)), dt)
+        first = streams["enqueue-ahead"]
+        require(len(first) == 32_768 and all(
+            np.array_equal(s, first) for s in streams.values()),
+            "stream: the three loops' audio differs")
+        pool = StreamPool(params, cfg, n_lanes=4, temperature=1.0, seed=11,
+                          device=dev)
+        others = list(embs.values())
+        pool.start(cond=others[1])
+        pool.start(cond=others[2])
+        lane = pool.start(cond=emb0, stream_key=int_key(STREAM_KEY))
+        levels = torch.cat([pool.emit(C4_CHUNK)[lane]
+                            for _ in range(len(first) // C4_CHUNK)])
+        write_wav(CLI_WORK / "pool.wav",
+                  tgen.decode_waveform(levels, cfg).cpu().numpy())
+        require(np.array_equal(pcm(CLI_WORK / "pool.wav"), first),
+                "stream --stream-key differs from a StreamPool lane "
+                "started with the same words")
+        print("cli stream, 2 s at T=1.0, --stream-key 7: "
+              + "; ".join(f"{k}: median {a:.1f} ms a chunk, worst {w:.1f} "
+                          f"ms, {dt:.2f} s wall" for k, (a, w, dt) in
+                          lat.items())
+              + "; the three equal, and equal a StreamPool lane started "
+              "with int_key(7) beside two other lanes")
+
+        # ---- serve: the extracted embeddings on 128 lanes
+        served = CLI_WORK / "served"
+        dt, out, _, n = verb("serve", "--ckpt", exp_dir, "--out", served,
+                             "--jobs-dir", emb1, "--lanes", BATCH,
+                             "--chunk-ms", 64, tag="serve --jobs-dir")
+        stats = json.loads(out.strip().splitlines()[-1])
+        require(stats == json.loads((served / "serve_stats.json").read_text())
+                and set(stats) == {"jobs", "chunks", "chunk", "lanes",
+                                   "generated", "dispatched", "utilization",
+                                   "wall_s", "sample_rate", "realtime_x"},
+                f"serve: stats {stats}")
+        for f, e in embs.items():
+            x = read_wav(served / f"{f.stem}.wav")[0]
+            require(x.shape == (len(e) * cfg.cond_rate,),
+                    f"serve: {f.stem}.wav has {x.shape} samples")
+        want = {}
+        for _ in range(stats["chunks"]):
+            want = add_counts(want, decode_launches(cfg, C4_CHUNK, True))
+        want["gemm_bias"] += cfg.frame_sizes[0]
+        check_counts(n, {**want, **zero4, "codec_decode": len(embs)},
+                     "serve --jobs-dir")
+        print(f"cli serve --jobs-dir: {stats['jobs']} jobs on "
+              f"{stats['lanes']} lanes, {stats['chunks']} chunks of "
+              f"{stats['chunk']}: {dt:.2f} s wall (run_jobs "
+              f"{stats['wall_s']:.3f} s), {stats['generated']:,} samples, "
+              f"{stats['generated'] / stats['wall_s']:,.0f} samples/s in "
+              f"run_jobs, {stats['generated'] / dt:,.0f} over the verb, "
+              f"utilization {stats['utilization']:.4f}; launches exact")
+        # a mixed manifest: seconds and length, cond (relative and
+        # absolute), cond_wav, seed_wav, an int id, int stream keys
+        npys = sorted(emb1.rglob("*.npy"))
+        jobs = [
+            {"id": "sec", "seconds": 0.5, "cond": str(npys[0])},
+            {"id": "len", "length": 5000,
+             "cond": str(npys[1].relative_to(CLI_WORK))},
+            {"id": "natural", "cond": str(npys[2].relative_to(CLI_WORK))},
+            {"id": "wav", "cond_wav": str(wav0), "length": 3000},
+            {"id": "seeded", "cond": str(npys[3]), "length": 4096,
+             "seed_wav": str(files[5])},
+            {"id": "keyed", "cond_wav": str(wav0), "seconds": 1.0,
+             "stream_key": STREAM_KEY},
+            {"id": "keyed9", "cond": str(npys[4]), "length": 2048,
+             "stream_key": 9},
+            {"id": 7, "cond": str(npys[5]), "seconds": 0.25},
+        ]
+        lengths = {"sec": 8000, "len": 5000,
+                   "natural": len(np.load(npys[2])) * cfg.cond_rate,
+                   "wav": 3000, "seeded": 4096, "keyed": 16_000,
+                   "keyed9": 2048, "job_007": 4000}
+        manifest = CLI_WORK / "jobs.json"
+        manifest.write_text(json.dumps(jobs))
+        mixed = CLI_WORK / "served_mixed"
+        dt, out, _, n = verb("serve", "--ckpt", exp_dir, "--out", mixed,
+                             "--jobs", manifest, "--lanes", BATCH,
+                             "--chunk-ms", 64, tag="serve --jobs")
+        require(sorted(p.stem for p in mixed.glob("*.wav")) == sorted(
+            lengths), f"serve --jobs: wrote {list(mixed.glob('*.wav'))}")
+        for jid, length in lengths.items():
+            require(pcm(mixed / f"{jid}.wav").shape == (length,),
+                    f"serve --jobs: {jid} is not {length} samples")
+        require(np.array_equal(pcm(mixed / "keyed.wav"), first[:16_000]),
+                "serve: the job with stream_key 7 differs from the stream")
+        want = {}
+        for _ in range(json.loads(out.strip().splitlines()[-1])["chunks"]):
+            want = add_counts(want, decode_launches(cfg, C4_CHUNK, True))
+        want["gemm_bias"] += cfg.frame_sizes[0]
+        # the seeded job's join primes its lane: one K4 forward per tier
+        check_counts(n, {**want, "gru_sequence_fwd": cfg.n_tiers,
+                         "gru_sequence_bwd": 0, "codec_decode": len(jobs)},
+                     "serve --jobs")
+        bad = CLI_WORK / "bad.json"
+        bad.write_text(json.dumps(jobs + [{"id": "../x", "length": 8,
+                                           "cond": str(npys[0])}]))
+        try:
+            verb("serve", "--ckpt", exp_dir, "--out", CLI_WORK / "bad",
+                 "--jobs", bad, tag="serve bad")
+            raised = False
+        except SmokeFailure:
+            raised = True
+        require(raised and not (CLI_WORK / "bad").exists(),
+                "serve: a bad manifest did not exit before writing")
+        print(f"cli serve --jobs: {len(jobs)} mixed jobs, {dt:.2f} s wall; "
+              f"each at its length, the stream_key 7 job equal to the "
+              f"stream's first 16,000 samples; a bad manifest exited "
+              f"before any wav")
+    print("cli verbs, wall seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in verb.wall.items()) + f"; on {card}")
+    return verb.total, verb.folds, verb.uncond_k2
 
 
 def check_bounds(entries):
@@ -3042,7 +3518,7 @@ def main() -> int:
         print(f"phase 15 (config 3 extraction): "
               f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        c16 = c4_joint(torch, dev, exp4, wav_dir, card)
+        c16, joint_ms = c4_joint(torch, dev, exp4, wav_dir, card)
         print(f"phase 16 (config 4 through JointTrainer.run, resume): "
               f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -3052,19 +3528,30 @@ def main() -> int:
         bench_pool_twin(card)
         print(f"phase 18 (bench_pool twin): "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c19, c19_folds, c19_uncond = c4_cli(torch, dev, exp3, wav_dir, card,
+                                            joint_ms)
+        print(f"phase 19 (config 4's TTS pipeline through the CLI): "
+              f"{time.perf_counter() - t0:.1f} s")
     except (SmokeFailure, subprocess.TimeoutExpired) as err:
         return fail(str(err))
     finally:
         shutil.rmtree(TTS_WORK, ignore_errors=True)
-    # config 4's paths of phases 7, 8, 12, 16 and 17, and their MLP folds
-    # (one per request or pool, two in phase 7)
-    c4_all = add_counts(add_counts(c4_all, c12), add_counts(c16, c17))
-    c4_folds = 5
-    c4_gen = add_counts(c12, c16)        # generation without lane keys
+    # config 4's paths of phases 7, 8, 12, 16, 17 and 19, and their MLP
+    # folds (one per request or pool, two in phase 7; phase 19 counts its
+    # own)
+    c4_all = add_counts(add_counts(add_counts(c4_all, c12),
+                                   add_counts(c16, c17)), c19)
+    c4_folds = 5 + c19_folds
+    # generation without lane keys: phases 12 and 16, phase 19's generate
+    c4_gen = add_counts(c12, c16)
+    c19_gen = c19["frame_decode"] - c19["frame_decode_lane_keys"]
 
-    # ---- 19. the result lines ----
-    # K2 over the decode paths, each case weighted by its launches there
-    k2_runs = {"flagship": launches["gemm_bias"],
+    # ---- 20. the result lines ----
+    # K2 over the decode paths, each case weighted by its launches there;
+    # phase 19's tier steps without conditioning rows are the flagship's
+    # products (config 4's model has the flagship's widths)
+    k2_runs = {"flagship": launches["gemm_bias"] + c19_uncond,
                "c2_3tier_lstm": c2_launches["gemm_bias"],
                "stacked_flagship": s5_launches["gemm_bias"]}
     k2n = sum(k2_runs.values())
@@ -3079,7 +3566,7 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:218",
          "launches": launches["frame_decode"] + s5_all["frame_decode"]
-         + c4_gen["frame_decode"],
+         + c4_gen["frame_decode"] + c19_gen,
          "max_abs_err": err1,
          "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
          "library_ms": None, "us_per_step": ms1 * 1e3 / f1},
@@ -3099,7 +3586,7 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gru_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
          "launches": launches["gru_gates"] + s5_all["gru_gates"]
-         + c4_gen["gru_gates"] + c17["gru_gates"],
+         + c4_gen["gru_gates"] + c17["gru_gates"] + c19["gru_gates"],
          "max_abs_err": err3,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": lms3},
@@ -3111,7 +3598,7 @@ def main() -> int:
          "bound_by": k6[5], "library_ms": k6[3]},
         # config 4's modes of the megakernel (megagen.py:196-220 tier_in,
         # :139-166 and :397-415 host noise), counted over phases 7, 8, 12,
-        # 16 and 17
+        # 16, 17 and 19
         {"name": "gemm_bias_cond", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
@@ -3124,7 +3611,7 @@ def main() -> int:
          # than the conditioned input, and the MLP folds
          "projection": {"launches": c4_all["gemm_bias"]
                         - 4 * c4_all["gemm_bias_cond"]
-                        - c4_folds * exp4.model.frame_sizes[0],
+                        - c4_folds * exp4.model.frame_sizes[0] - c19_uncond,
                         "max_abs_err": k2p["err"], "ms": k2p["ms"],
                         "plain_ms": k2p["plain"], "bound_ms": k2p["bound"],
                         "library_ms": k2p["lib"]}},
@@ -3143,7 +3630,7 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/codec.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/codec.py:35",
          "launches": s5_launches[f"codec_{d}"] + c4_gen[f"codec_{d}"]
-         + c17[f"codec_{d}"],
+         + c17[f"codec_{d}"] + c19[f"codec_{d}"],
          "max_abs_err": k7[d]["err"], "ms": k7[d]["ms"],
          "plain_ms": k7[d]["plain"], "bound_ms": k7[d]["bound"],
          "bound_by": k7[d]["by"], "library_ms": None}
@@ -3175,8 +3662,8 @@ def main() -> int:
          "library_ms": st[d]["lib"]}
         for cell, st, seq_launches, tiers, nb in (
             ("gru", k4, add_counts(add_counts(k4_launches, s5_train),
-                                   add_counts(c4_gen, c17)), "64 and 16",
-             BATCH),
+                                   add_counts(add_counts(c4_gen, c17),
+                                              c19)), "64 and 16", BATCH),
             ("lstm", k5, k5_launches, "64, 16 and 4",
              exp2.train.batch_size))
         for d in ("fwd", "bwd")

@@ -58,6 +58,22 @@ def state_from_jax(states, device="cpu") -> tuple:
     return tuple(tree_map(_leaf_to_torch(device), list(states)))
 
 
+def experiment_from_jax(restored) -> dict:
+    """A checkpoint as the reference's ``CheckpointManager.restore()``
+    returns it -> the port's checkpoint payload ``{"step", "params"}``
+    (CPU tensors), for ``CheckpointManager(dir).save(payload["step"],
+    payload["params"])``.  ``params`` is the model's tree, or a joint
+    run's ``{"joint": {"srnn", "pase"}, "bn": bn_state}``.  The optimizer
+    state is not carried: a resume across frameworks is not supported."""
+    p = restored["params"]
+    if isinstance(p, dict) and "joint" in p:
+        joint, bn = joint_from_jax(p["joint"], p["bn"])
+        params = {"joint": joint, "bn": bn}
+    else:
+        params = params_from_jax(p)
+    return {"step": int(restored["step"]), "params": params}
+
+
 def to_numpy(tree):
     """The inverse: a tree of tensors -> the same tree of numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -89,10 +89,12 @@ def sinc_filters(params, cfg: PASEConfig) -> torch.Tensor:
     sr = cfg.sample_rate
     dev = params["low_hz"].device
     low = cfg.min_low_hz + torch.abs(params["low_hz"])
-    # jnp.clip's maximum-then-minimum: a tie passes half the gradient
+    # jnp.clip's maximum-then-minimum: a tie passes half the gradient.
+    # The bounds are filled on the device: torch.tensor(x, device=cuda)
+    # copies from pageable memory and waits for the card.
     high = torch.minimum(
-        torch.tensor(sr / 2.0, dtype=F32, device=dev),
-        torch.maximum(torch.tensor(cfg.min_low_hz, dtype=F32, device=dev),
+        torch.full((), sr / 2.0, dtype=F32, device=dev),
+        torch.maximum(torch.full((), cfg.min_low_hz, dtype=F32, device=dev),
                       low + cfg.min_band_hz + torch.abs(params["band_hz"])))
     n = torch.arange(1, half + 1, dtype=F32, device=dev) / sr      # [half]
     window = 0.54 - 0.46 * torch.cos(

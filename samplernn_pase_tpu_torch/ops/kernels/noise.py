@@ -152,3 +152,11 @@ def lane_key(seed: int, lane: int, epoch: int) -> np.ndarray:
                 for c in (lane & _MASK32, epoch & _MASK32, 0, _KEY_DOMAIN))
     words = philox4x32_10(ctr, (seed & _MASK32, (seed >> 32) & _MASK32))
     return np.array([int(words[0]), int(words[1])], np.uint32)
+
+
+def int_key(n: int) -> np.ndarray:
+    """The [2] uint32 words of the reference's ``jax.random.PRNGKey(n)``
+    for an int seed (32-bit JAX, its default): ``[0, n mod 2**32]`` for n
+    in the int64 range, ``OverflowError`` outside it, where JAX raises."""
+    n = int(np.int64(n))
+    return np.array([0, n & _MASK32], np.uint32)

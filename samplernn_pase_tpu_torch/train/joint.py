@@ -47,6 +47,10 @@ def init_joint(gen: torch.Generator, model_cfg: SampleRNNConfig,
     srnn = samplernn.init_params(gen, model_cfg, device)
     if pase_params is None:
         pase_params, bn_state = pase_mod.init_pase(gen, pase_cfg, device)
+    else:
+        dev = srnn["mlp"]["b_out"].device
+        pase_params, bn_state = tree_map(lambda t: t.to(dev),
+                                         (pase_params, bn_state))
     return {"srnn": srnn, "pase": pase_params}, bn_state
 
 
