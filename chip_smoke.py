@@ -155,7 +155,27 @@ Phases (any failure ends the run with a non-zero exit):
    extracted embeddings on 128 lanes (each job's length, exact launches)
    and a mixed manifest (its stream_key 7 job equal to the stream), and
    a bad manifest exiting before any wav;
-20. a {"kernels": [...]} line (launch counts over phases 3-19's main
+20. the mesh on the card: (a) a one-rank NCCL mesh in this process, the
+   float32 flagship through Trainer.run with mesh= equal to mesh=None
+   within 1e-5; (b) two ranks sharing the card over gloo
+   (parallel.launch.run_ranks, a deadline on the ranks; a rank's failure
+   fails the phase): the flagship's train step at B=128, 64 a rank
+   (float32 at dim 64 within 1e-5, bf16 at full width within phase 4's
+   bars, K4 twice a step on each rank, its steps timed), the same step on
+   a (1, 2) (data, model) mesh with the MLP split 512/512, config 4
+   through JointTrainer.run for one epoch at B=32 (per-step NLLs within
+   0.01 bits of the unsharded run, BatchNorm state equal on both ranks),
+   run_jobs on 128 lanes over 64 jobs of phase 17's kind, greedy and with
+   pinned keys (bit-equal to the unsharded run, exact K1 lane-key
+   launches on each rank), and cli.main(["train", "--joint", ...]) on
+   both ranks over the group this script made; each part's wall time
+   (the two-rank times measure gloo's staging through the host, not
+   scaling);
+21. the bench_host and perf_floor twins and the four examples, each in
+   its own process (its launches counted by a wrapper): each prints its
+   line with no skip, bench_host's native gather at over 4x the card's
+   step rate, and perf_floor exits 0 (every floor holds);
+22. a {"kernels": [...]} line (launch counts over phases 3-21's main
    paths), which fails the run if any entry, or any by_path or
    projection sub-entry, reads faster than its bound_ms; then the last
    line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -3026,6 +3046,628 @@ def c4_cli(torch, dev, exp3, wav_dir, card, joint_ms):
     return verb.total, verb.folds, verb.uncond_k2
 
 
+MESH_WORK = ROOT / "build" / "mesh"   # phase 20's experiment directory
+MESH_JOBS = 64                        # phase 20's run_jobs manifest
+MESH_TIMEOUT = 600                    # seconds a rank may take in all
+# config 4's joint step sharded against whole, from one start: the NLL
+# within 1e-4; each half's gradient (the norm of the difference over its
+# norm) in float32 within 3x its own conditioning floor (phase 16's rule:
+# the unsharded gradient under a 1e-7 relative nudge of the parameters),
+# in bf16 within JOINT_BF16_GRAD_BAR (the split moves the encoder's
+# gradient by 0.103 on the H100); a gradient not summed over data reads
+# 0.5-0.8.  The epoch's NLLs drift apart as Adam compounds the bf16
+# difference (up to 9.94e-3 bits in three runs on the H100): the bar over
+# the whole epoch leaves room for it.
+JOINT_BF16_GRAD_BAR = 0.25
+JOINT_NLL_BAR = 0.05
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launches_now() -> dict:
+    """Every kernel's launch count since its module's last reset."""
+    from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    return {**kdec.LAUNCHES, **rt.LAUNCHES, **kcodec.LAUNCHES}
+
+
+def reset_all_launches():
+    from samplernn_pase_tpu_torch.ops.kernels import codec as kcodec
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.ops.kernels import rnn_train as rt
+    for mod in (kdec, rt, kcodec):
+        mod.reset_launches()
+
+
+def tree_rel(torch, ga, gb) -> float:
+    """The norm of two gradient trees' difference over the second's."""
+    from samplernn_pase_tpu_torch.tree import tree_leaves
+    la, lb = tree_leaves(ga), tree_leaves(gb)
+    num = sum((a.float() - b.float()).square().sum() for a, b in zip(la, lb))
+    return (num / sum(b.float().square().sum() for b in lb)).sqrt().item()
+
+
+def grads_rel(torch, ga, gb) -> float:
+    """The worst relative norm of a gradient's difference, leaf by leaf."""
+    from samplernn_pase_tpu_torch.tree import tree_leaves
+    return max(((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(tree_leaves(ga), tree_leaves(gb))
+               if b.float().norm() > 0)
+
+
+def train_grads(torch, cfg, params, x, r, mesh, dev):
+    """One step's global NLL and gradients (summed over ``data``, the MLP
+    shards gathered whole) of this rank's part of the whole batch."""
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.parallel import mesh as pm
+    from samplernn_pase_tpu_torch.train.trainer import _grads
+    from samplernn_pase_tpu_torch.tree import tree_map
+
+    sh = pm.batch_sharding(mesh)
+    p = tree_map(lambda t: t.detach().requires_grad_(True),
+                 pm.shard_params(params, mesh))
+    xs = sh.shard(x)
+    h = pm.shard_state(mesh, samplernn.initial_state(params, cfg,
+                                                     x.shape[0]))
+    nll, _ = samplernn.loss_fn(p, cfg, xs, xs[:, cfg.lookback:],
+                               samplernn.reset_state(params, cfg, h,
+                                                     sh.shard(r)),
+                               mesh=mesh)
+    g = _grads(nll, p, mesh)
+    return (samplernn.global_nll(nll, mesh).item(),
+            pm.unshard_params(g, mesh))
+
+
+def joint_grads(torch, mcfg, pcfg, params, bn, x, r, mesh):
+    """One joint step's global NLL and gradients (summed over ``data``)
+    of this rank's part of the whole batch, at the step's start."""
+    from samplernn_pase_tpu_torch.models import pase, samplernn
+    from samplernn_pase_tpu_torch.parallel import mesh as pm
+    from samplernn_pase_tpu_torch.train.joint import joint_cond
+    from samplernn_pase_tpu_torch.train.trainer import _grads
+    from samplernn_pase_tpu_torch.tree import tree_map
+
+    sh = pm.batch_sharding(mesh)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    xs = sh.shard(x)
+    h = pm.shard_state(mesh, samplernn.initial_state(params["srnn"], mcfg,
+                                                     x.shape[0]))
+    with pase.conv_numerics():
+        cond, _ = joint_cond(p["pase"], bn, mcfg, pcfg, xs, train=True,
+                             mesh=mesh)
+        nll, _ = samplernn.loss_fn(
+            p["srnn"], mcfg, xs, xs[:, mcfg.lookback:],
+            samplernn.reset_state(params["srnn"], mcfg, h, sh.shard(r)),
+            cond, mesh=mesh)
+        g = _grads(nll, p, mesh)
+    return samplernn.global_nll(nll, mesh).item(), g
+
+
+def mesh_rank(rank: int, world: int, spec: dict) -> dict:
+    """Phase 20b on one of two ranks sharing the card over gloo (spawned
+    by ``parallel.launch.run_ranks``): each part's numbers, this rank's
+    launches by part, and the results the parent holds against each
+    other."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from samplernn_pase_tpu_torch import cli
+    from samplernn_pase_tpu_torch.data.dataset import WavCorpus
+    from samplernn_pase_tpu_torch.models.pase import conv_numerics
+    from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
+    from samplernn_pase_tpu_torch.models import samplernn
+    from samplernn_pase_tpu_torch.ops.kernels import decode as kdec
+    from samplernn_pase_tpu_torch.parallel import dryrun
+    from samplernn_pase_tpu_torch.parallel import mesh as pm
+    from samplernn_pase_tpu_torch.serve import run_jobs
+    from samplernn_pase_tpu_torch.train.joint import JointTrainer, init_joint
+    from samplernn_pase_tpu_torch.train.optim import make_optimizer
+    from samplernn_pase_tpu_torch.train.trainer import Plugin, make_train_step
+
+    kdec.plain_numerics()
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = pm.make_mesh()
+    out = {"device": str(dev), "launches": {}, "wall": {}}
+    b, seq_len, chunk = spec["batch"], spec["seq_len"], spec["chunk"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def part(name, fn):
+        reset_all_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["wall"][name] = time.perf_counter() - t0
+        out["launches"][name] = launches_now()
+        return res
+
+    # (1) the flagship's train step at B=128, 64 a rank: float32 at a
+    # small width within 1e-5; bf16 at full width against phase 4's bars,
+    # its steps timed (K4 twice a step on each rank)
+    small = dataclasses.replace(spec["flagship"], dim=64, embed_dim=32,
+                                compute_dtype="float32")
+    ps = samplernn.init_params(torch.Generator().manual_seed(21), small,
+                               "cpu")
+    rng = np.random.default_rng(21)
+    x_small = rng.integers(0, 256, (b, small.lookback * 5), np.int32)
+    ones = np.ones((b,), np.float32)
+    with conv_numerics():       # deterministic cuDNN: the MLP's window
+        got = part("f32_small", lambda: dryrun.train_step(
+            small, ps, x_small, ones, mesh=mesh, device=dev))
+        want = dryrun.train_step(small, ps, x_small, ones, device=dev)
+    out["f32_nll"] = (got[0], want[0])
+    out["f32_err"] = tree_diff(torch, tree_map(torch.as_tensor, got[1:]),
+                               tree_map(torch.as_tensor, want[1:]))
+    out["f32_ok"] = all(np.allclose(u, v, atol=1e-5, rtol=1e-5) for u, v in
+                        zip(tree_leaves(got[1:]), tree_leaves(want[1:])))
+    cfg = spec["flagship"]
+    params = samplernn.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    x = torch.from_numpy(rng.integers(0, 256, (b, cfg.lookback + seq_len),
+                                      np.int32)).to(dev)
+    r = torch.ones(b, device=dev)
+    nll_s, g_s = train_grads(torch, cfg, params, x, r, mesh, dev)
+    nll_u, g_u = train_grads(torch, cfg, params, x, r, None, dev)
+    out["bf16_dp"] = (nll_s, nll_u, grads_rel(torch, g_s, g_u))
+    tx = make_optimizer(1e-3, 1.0)
+    step = make_train_step(cfg, tx, mesh)
+    sh = pm.batch_sharding(mesh)
+    xs = sh.shard(x)
+    state = [params, tx.init(params),
+             samplernn.initial_state(params, cfg, b // world)]
+
+    def steps(n):
+        for _ in range(n):
+            state[0], state[1], state[2], _ = step(
+                *state, xs, xs[:, cfg.lookback:], sh.shard(r))
+    steps(1)
+    part("bf16_dp_steps", lambda: steps(3))
+    out["bf16_dp_ms"] = out["wall"]["bf16_dp_steps"] / 3 * 1e3
+
+    # (2) the flagship on a (1, 2) mesh: the MLP split 512/512
+    mesh2 = pm.make_mesh((1, 2), ("data", "model"))
+    out["mlp_split"] = tuple(pm.shard_params(params, mesh2)["mlp"]["w_h"]
+                             .shape)
+    nll_t, g_t = part("bf16_tp", lambda: train_grads(
+        torch, cfg, params, x, r, mesh2, dev))
+    out["bf16_tp"] = (nll_t, nll_u, grads_rel(torch, g_t, g_u))
+    del g_s, g_u, g_t, state
+
+    # (3) config 4's joint step: its gradients at the start, sharded and
+    # whole, in bf16 and float32 (the encoder's and SampleRNN's sums over
+    # data); then JointTrainer.run, one epoch, B=32 (16 a rank)
+    exp4 = spec["exp4"]
+    tcfg = dataclasses.replace(exp4.train, epochs=1)
+    corpus = WavCorpus.from_folder(spec["wav_dir"])
+    jp, jb = init_joint(torch.Generator().manual_seed(19), exp4.model,
+                        exp4.pase, device=dev)
+    bj = tcfg.batch_size
+    xj = torch.from_numpy(rng.integers(
+        0, 256, (bj, exp4.model.lookback + tcfg.seq_len), np.int32)).to(dev)
+    rj = torch.ones(bj, device=dev)
+    halves = ("pase", "srnn")
+    for dt in ("bfloat16", "float32"):
+        mc = dataclasses.replace(exp4.model, compute_dtype=dt)
+        pc = dataclasses.replace(exp4.pase, compute_dtype=dt)
+        nll_s, g_s = part(f"joint_grads_{dt}", lambda: joint_grads(
+            torch, mc, pc, jp, jb, xj, rj, mesh))
+        nll_u, g_u = joint_grads(torch, mc, pc, jp, jb, xj, rj, None)
+        rec = {"nll": (nll_s, nll_u),
+               "rel": [tree_rel(torch, g_s[h], g_u[h]) for h in halves],
+               "leaf": [grads_rel(torch, g_s[h], g_u[h]) for h in halves]}
+        if dt == "float32":
+            ng = torch.Generator(device=dev).manual_seed(23)
+            nudged = tree_map(lambda a: a * (1 + 1e-7 * torch.randn(
+                a.shape, device=dev, generator=ng)), jp)
+            g_n = joint_grads(torch, mc, pc, nudged, jb, xj, rj, None)[1]
+            rec["floor"] = [tree_rel(torch, g_n[h], g_u[h]) for h in halves]
+        out[f"joint_grads_{dt}"] = rec
+    del g_s, g_u
+
+    def joint_run(m):
+        rec = []
+
+        class Rec(Plugin):
+            def on_step(self, t, s, metrics):
+                rec.append(metrics["nll_bits"])
+        t = JointTrainer(exp4.model, exp4.pase, tcfg, corpus, [Rec()],
+                         params=jp, bn_state=jb, device=dev, mesh=m)
+        t.run()
+        bn = {k: v.cpu().numpy() for k, v in t.bn_state["proj"].items()}
+        digest = hashlib.sha256()
+        for leaf in tree_leaves(t.params):
+            digest.update(leaf.detach().float().cpu().numpy().tobytes())
+        return rec, bn, digest.hexdigest()
+
+    out["joint"] = part("joint", lambda: joint_run(mesh))
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["joint_plain"] = joint_run(None)
+        out["wall"]["joint_plain"] = time.perf_counter() - t0
+
+    # (4) run_jobs: 128 lanes (64 a rank) over MESH_JOBS of phase 17's
+    # jobs, greedy and with pinned keys
+    cfg4 = exp4.model
+    params4 = samplernn.init_params(torch.Generator().manual_seed(9), cfg4,
+                                    dev)
+    kw = dict(n_lanes=b, chunk=chunk, seed=7, device=dev)
+    greedy = [{k: v for k, v in j.items() if k != "stream_key"}
+              for j in spec["jobs"]]
+    pinned = [dict(j, stream_key=j.get("stream_key", spec["keys"][i]))
+              for i, j in enumerate(spec["jobs"])]
+    for name, jobs, temp in (("jobs_greedy", greedy, None),
+                             ("jobs_pinned", pinned, 1.0)):
+        res, stats = part(name, lambda: run_jobs(
+            params4, cfg4, jobs, temperature=temp, mesh=mesh, **kw))
+        out[name] = (res, stats["chunks"])
+        if rank == 0:
+            reset_all_launches()
+            plain, pstats = run_jobs(params4, cfg4, jobs, temperature=temp,
+                                     **kw)
+            out[name + "_plain"] = (plain, pstats["chunks"],
+                                    launches_now())
+
+    # (5) the CLI's train --joint on the group this script initialized
+    exp_dir = Path(spec["work"]) / "cli_joint"
+    part("cli", lambda: cli.main([
+        "--platform", dev.type, "train", "--joint", "--config",
+        spec["config"], "--dataset", spec["wav_dir"], "--exp-dir",
+        str(exp_dir), "--epochs", "1"]))
+    if rank == 0:
+        lines = [json.loads(s) for s in
+                 (exp_dir / "metrics.jsonl").read_text().splitlines()]
+        out["cli"] = ([m["nll_bits"] for m in lines
+                       if m.get("split") == "train"],
+                      sorted(p.name for p in (exp_dir / "ckpt").glob(
+                          "*.pt")))
+    return out
+
+
+def mesh_phase(torch, dev, exp4, embs, wav_dir, card):
+    """Phase 20: the mesh on the card, (a) ``nccl_mesh`` then (b)
+    ``gloo_mesh``.  Returns the sharded runs' launches, summed over
+    ranks."""
+    return add_counts(nccl_mesh(torch, dev, card),
+                      gloo_mesh(torch, exp4, embs, wav_dir, card))
+
+
+def nccl_mesh(torch, dev, card):
+    """Phase 20a: a one-rank NCCL mesh in this process (its collectives
+    run through NCCL on the card): the float32 flagship through
+    ``Trainer.run`` with ``mesh=`` against ``mesh=None``, per-step NLLs,
+    parameters and hiddens within 1e-5, with deterministic cuDNN (the
+    MLP's window convolution; a second ``mesh=None`` run gives the
+    run-to-run floor).  Returns the mesh run's launches."""
+    import torch.distributed as dist
+
+    from samplernn_pase_tpu_torch.config import SampleRNNConfig, TrainConfig
+    from samplernn_pase_tpu_torch.data.dataset import synthetic_corpus
+    from samplernn_pase_tpu_torch.models.pase import conv_numerics
+    from samplernn_pase_tpu_torch.parallel import mesh as pm
+    from samplernn_pase_tpu_torch.train import trainer as tr
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        cfg32 = SampleRNNConfig(frame_sizes=(16, 4), dim=1024, embed_dim=256,
+                                compute_dtype="float32")
+        # more utterances than lanes: the held-out tenth leaves every lane
+        # one or two
+        corpus = synthetic_corpus(n_utts=BATCH + 32, length=2 * SEQ_LEN,
+                                  seed=3)
+        tcfg = TrainConfig(batch_size=BATCH, seq_len=SEQ_LEN, epochs=1)
+
+        def run(m):
+            rec = []
+
+            class Rec(tr.Plugin):
+                def on_step(self, t, s, metrics):
+                    rec.append(metrics["nll_bits"])
+            t = tr.Trainer(cfg32, tcfg, corpus, [Rec()], seed=5, device=dev,
+                           mesh=m)
+            with conv_numerics():
+                t.run()
+            return rec, (t.params, list(t.hiddens))
+        mesh1 = pm.make_mesh()
+        reset_all_launches()
+        got = run(mesh1)
+        torch.cuda.synchronize()
+        launches = launches_now()
+        want, again = run(None), run(None)
+        err = max(abs(a - b) for a, b in zip(got[0], want[0]))
+        perr = tree_diff(torch, got[1], want[1])
+        floor = tree_diff(torch, again[1], want[1])
+        print(f"phase 20a, one NCCL rank (backend {dist.get_backend()}, "
+              f"mesh {dict(zip(mesh1.mesh_dim_names, mesh1.shape))}): the "
+              f"float32 flagship through Trainer.run, {len(got[0])} steps "
+              f"at B={BATCH}, seq_len {SEQ_LEN}: NLLs within {err:.2e} of "
+              f"mesh=None, parameters and hiddens within {perr:.2e} (bound "
+              f"1e-5; two mesh=None runs {floor:.2e} apart); "
+              f"{time.perf_counter() - t0:.1f} s")
+        require(len(got[0]) == len(want[0]) > 0 and err <= 1e-5
+                and perr <= 1e-5, "the one-rank NCCL mesh differs from "
+                "mesh=None")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def gloo_mesh(torch, exp4, embs, wav_dir, card):
+    """Phase 20b: two ranks sharing the card over gloo (``mesh_rank``,
+    spawned with a deadline; a rank's failure fails the phase): the
+    flagship's train step at B=128 sharded over ``data`` (float32 small
+    within 1e-5, bf16 full width within phase 4's bars) and over a (1, 2)
+    mesh (the MLP split 512/512); config 4 through ``JointTrainer.run`` at
+    B=32 for one epoch (per-step NLLs within 0.01 bits of the unsharded
+    run's, BatchNorm state equal on both ranks); ``run_jobs`` on 128
+    lanes over MESH_JOBS jobs, greedy and with pinned keys, bit-equal to
+    the unsharded run, with exact K1 counts per rank; ``cli.main(["train",
+    "--joint", ...])`` on both ranks.  The numbers measure gloo's staging
+    through the host, not scaling.  Returns the sharded runs' launches,
+    summed over ranks."""
+    import numpy as np
+
+    from samplernn_pase_tpu_torch.config import SampleRNNConfig
+    from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
+    from samplernn_pase_tpu_torch.parallel.launch import run_ranks
+
+    total = {}
+    cfg4 = exp4.model
+    rows = list(embs.values())
+    rng = np.random.default_rng(51)
+    jobs = []
+    for i in range(MESH_JOBS):
+        job = {"id": f"job{i:03d}", "cond": rows[i % len(rows)]}
+        if i % 16 == 1:
+            job["stream_key"] = lane_key(61, i, 0)
+        if i % 16 == 2:
+            job["seed_levels"] = rng.integers(0, cfg4.q_levels, 1024)
+            job["seed_cond"] = rows[(i + 1) % len(rows)][:7]
+        jobs.append(job)
+    spec = {"wav_dir": str(wav_dir), "jobs": jobs,
+            "keys": [lane_key(62, i, 0) for i in range(MESH_JOBS)],
+            "device": "cuda", "batch": BATCH, "seq_len": SEQ_LEN,
+            "chunk": C4_CHUNK, "exp4": exp4, "work": str(MESH_WORK),
+            "config": str(ROOT / "configs" / "c4_tts_conditioned.json"),
+            "flagship": SampleRNNConfig(frame_sizes=(16, 4), dim=1024,
+                                        embed_dim=256,
+                                        compute_dtype="bfloat16")}
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, (spec,), device=torch.device("cuda", 0),
+                      timeout=MESH_TIMEOUT)
+    wall_b = time.perf_counter() - t0
+    r0, r1 = ranks
+    require(r0["device"] == r1["device"] == "cuda:0",
+            f"ranks on {r0['device']} and {r1['device']}, not both on cuda:0")
+    # (1) the flagship's step
+    print(f"phase 20b, two gloo ranks on {r0['device']}: float32 flagship "
+          f"(dim 64) step at B={BATCH}, 64 a rank: NLL {r0['f32_nll'][0]:.6f}"
+          f" vs {r0['f32_nll'][1]:.6f} unsharded; parameters and hiddens "
+          f"within {r0['f32_err']:.2e} (bound 1e-5 + 1e-5 relative)")
+    require(r0["f32_ok"] and r1["f32_ok"], "the float32 sharded step "
+            "differs from the unsharded step")
+    for key, what in (("bf16_dp", "(2,) data"), ("bf16_tp", "(1, 2) "
+                      f"(data, model), w_h split {r0['mlp_split']}")):
+        for r in ranks:
+            ns, nu, rel = r[key]
+            require(abs(ns - nu) <= 0.01 and rel <= 0.1,
+                    f"{key}: NLL {ns} vs {nu} or gradient {rel} over phase "
+                    "4's bars")
+        ns, nu, rel = r0[key]
+        print(f"  bf16 flagship step at full width on a {what} mesh: NLL "
+              f"{ns:.5f} vs {nu:.5f} unsharded (bound 0.01), worst gradient "
+              f"relative norm {rel:.4f} (bound 0.1)")
+    require(r0["mlp_split"] == (1024, 512), "the MLP is not split 512/512")
+    for r in ranks:
+        k4 = {k: r["launches"]["bf16_dp_steps"][k]
+              for k in ("gru_sequence_fwd", "gru_sequence_bwd")}
+        require(k4 == {"gru_sequence_fwd": 6, "gru_sequence_bwd": 6},
+                f"K4 launches {k4} in 3 steps on a rank, expected 2 a step")
+    print(f"  bf16 flagship step, B=64 a rank: {r0['bf16_dp_ms']:.2f} and "
+          f"{r1['bf16_dp_ms']:.2f} ms a step on the two ranks (K4 twice a "
+          f"step on each; gloo's host staging, not scaling) on {card}")
+    # (3) joint training: the first step's gradients, then the epoch
+    for dt in ("bfloat16", "float32"):
+        for r in ranks:
+            rec = r[f"joint_grads_{dt}"]
+            (ns, nu), bars = rec["nll"], (
+                [3 * f for f in rec["floor"]] if "floor" in rec
+                else [JOINT_BF16_GRAD_BAR] * 2)
+            require(abs(ns - nu) <= 1e-4 and all(
+                x <= bar for x, bar in zip(rec["rel"], bars)),
+                f"config 4's joint step in {dt}: NLL {ns} vs {nu} (bound "
+                f"1e-4), gradient relative norms (encoder, SampleRNN) "
+                f"{rec['rel']} (bounds {bars})")
+        rec = r0[f"joint_grads_{dt}"]
+        (rp, rs), (lp, ls) = rec["rel"], rec["leaf"]
+        bound = (f"3x the unsharded step's own under a 1e-7 nudge of the "
+                 f"params, {rec['floor'][0]:.2e} and {rec['floor'][1]:.2e}"
+                 if "floor" in rec else f"{JOINT_BF16_GRAD_BAR}")
+        print(f"  config 4 joint step at B=32 (16 a rank), {dt}, from the "
+              f"same start: NLL {rec['nll'][0]:.6f} vs {rec['nll'][1]:.6f} "
+              f"unsharded (bound 1e-4); gradient relative norm, encoder "
+              f"{rp:.2e}, SampleRNN {rs:.2e} (bound {bound}); worst leaf "
+              f"{lp:.2e} and {ls:.2e}")
+    (nll_s, bn0, p0), (nll_s1, bn1, p1) = r0["joint"], r1["joint"]
+    nll_u = r0["joint_plain"][0]
+    diffs = [abs(a - b) for a, b in zip(nll_s, nll_u)]
+    jerr = max(diffs)
+    bn_eq = all(np.array_equal(bn0[k], bn1[k]) for k in bn0)
+    print(f"  config 4 JointTrainer.run, one epoch, B=32 (16 a rank): "
+          f"{len(nll_s)} steps, NLL {nll_s[0]:.4f} -> {nll_s[-1]:.4f}; "
+          f"step 0 within {diffs[0]:.2e} bits of the unsharded run (bound "
+          f"1e-4), every step within {jerr:.2e} (bound {JOINT_NLL_BAR}; "
+          f"step by step {', '.join(f'{d:.1e}' for d in diffs)}); "
+          f"parameters bit-equal on both ranks: {p0 == p1}; "
+          f"BatchNorm state equal on both ranks: {bn_eq}; "
+          f"{r0['wall']['joint'] / len(nll_s) * 1e3:.1f} ms a step sharded, "
+          f"{r0['wall']['joint_plain'] / len(nll_u) * 1e3:.1f} unsharded "
+          f"(wall, set-up included)")
+    require(nll_s == nll_s1 and len(nll_s) == len(nll_u) > 0
+            and diffs[0] <= 1e-4 and jerr <= JOINT_NLL_BAR and p0 == p1
+            and bn_eq, "sharded joint training differs")
+    # (4) run_jobs
+    for name in ("jobs_greedy", "jobs_pinned"):
+        (res0, ch0), (res1, ch1) = r0[name], r1[name]
+        plain, chp, plain_launch = r0[name + "_plain"]
+        same = (set(res0) == set(plain) == set(res1) and all(
+            np.array_equal(res0[j], plain[j])
+            and np.array_equal(res1[j], plain[j]) for j in plain))
+        k1 = [r["launches"][name]["frame_decode_lane_keys"] for r in ranks]
+        want_k1 = (decode_launches(cfg4, C4_CHUNK, True)[
+            "frame_decode_lane_keys"] * ch0 if name == "jobs_pinned" else 0)
+        wall = r0["wall"][name]
+        print(f"  run_jobs {name[5:]}: {len(res0)} jobs, {ch0} chunks of "
+              f"{C4_CHUNK} on {BATCH} lanes (64 a rank), bit-equal to the "
+              f"unsharded run: {same}; K1 lane-key launches per rank {k1} "
+              f"(expected {want_k1}, unsharded "
+              f"{plain_launch['frame_decode_lane_keys']}); {wall:.2f} s, "
+              f"{wall / ch0 * 1e3:.1f} ms a chunk")
+        require(same and ch0 == ch1 == chp, f"{name}: sharded jobs differ")
+        require(k1 == [want_k1, want_k1] and plain_launch[
+            "frame_decode_lane_keys"] == want_k1,
+            f"{name}: K1 lane-key launches {k1}, expected {want_k1}")
+    # (5) the CLI
+    nlls, ckpts = r0["cli"]
+    print(f"  cli train --joint on both ranks: {len(nlls)} logged steps, "
+          f"NLL {nlls[0]:.4f} -> {nlls[-1]:.4f}, checkpoints {ckpts}; "
+          f"{r0['wall']['cli']:.1f} s")
+    require(nlls and all(np.isfinite(nlls)) and ckpts,
+            "the CLI's train under the world wrote no metrics or checkpoint")
+    for r in ranks:
+        for counts in r["launches"].values():
+            total = add_counts(total, counts)
+    print(f"phase 20b: {wall_b:.1f} s (two ranks spawned, each part's wall: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r0["wall"].items())
+          + f") on {card}")
+    return total
+
+
+COUNTED = """import json, runpy, sys
+out, mod = sys.argv[1], sys.argv[2]
+sys.argv = [mod] + sys.argv[3:]
+from samplernn_pase_tpu_torch.ops.kernels import codec, decode, rnn_train
+code = 0
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+with open(out, "w") as f:
+    json.dump({**decode.LAUNCHES, **rnn_train.LAUNCHES, **codec.LAUNCHES}, f)
+sys.exit(code)
+"""
+
+
+def start_counted(module: str, args=()):
+    """Start ``run_module`` through a wrapper that writes the process's
+    kernel launches; ``finish_counted`` waits for it."""
+    MESH_WORK.mkdir(parents=True, exist_ok=True)
+    path = MESH_WORK / f"{module.rsplit('.', 1)[-1]}.launches.json"
+    proc = subprocess.Popen([sys.executable, "-c", COUNTED, str(path),
+                             module, *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return module, args, path, proc, time.perf_counter()
+
+
+def finish_counted(started, timeout: int = 600):
+    """(stdout lines, launches) of a ``start_counted`` process, or
+    SmokeFailure on a non-zero exit; the process is killed at the
+    timeout (TimeoutExpired)."""
+    module, args, path, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    require(proc.returncode == 0, f"{module} exited {proc.returncode}: "
+            + "\n".join((lines + err.strip().splitlines())[-15:]))
+    print(f"{module} {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+    return lines, json.loads(path.read_text())
+
+
+# perf_floor's metrics by the model they run, one process each, so that
+# each process's K2 launches are booked to the path whose shapes they have
+PERF_FLOOR_GROUPS = (
+    ("flagship", ("gen_flagship_2tier_gru", "train_step_ms_b128_seq1024")),
+    ("c2", ("gen_3tier_lstm", "train_lstm3_step_ms_b64_seq1024")),
+    ("c4", ("gen_conditioned_tts", "train_joint_step_ms_b32_seq1280")))
+
+
+def twins_phase(card):
+    """Phase 21: the bench_host and perf_floor twins and the four
+    examples, each in its own process on the card (the examples side by
+    side): each prints its line
+    with no skip, perf_floor exits 0 (every floor holds).  Returns their
+    launches by path: "flagship" (bench_host and perf_floor's flagship
+    metrics), "c2" and "c4" (perf_floor's metrics on config 2's and config
+    4's models) and "examples" (their own small models)."""
+    lines, flagship = finish_counted(start_counted(
+        "samplernn_pase_tpu_torch.scripts.bench_host"))
+    rec = json.loads(lines[-1])
+    print(json.dumps(rec))
+    require("skipped" not in rec and rec["headroom_native_x"] > 4,
+            "bench_host: skipped, or host batching under 4x the card's rate")
+    by = {}
+    for path, names in PERF_FLOOR_GROUPS:
+        lines, n = finish_counted(start_counted(
+            "samplernn_pase_tpu_torch.scripts.perf_floor",
+            [a for m in names for a in ("--metric", m)]))
+        recs = [json.loads(s) for s in lines if s.startswith("{")]
+        for rec in recs:
+            print(json.dumps(rec))
+        require([r["metric"] for r in recs] == list(names)
+                and all(r.get("ok") for r in recs),
+                f"perf_floor {names}: a floor did not hold, or a line is "
+                "missing")
+        by[path] = n
+    by["flagship"] = add_counts(by["flagship"], flagship)
+    # the examples hold no time, so the four run side by side
+    by["examples"] = {}
+    checks = (("train_and_generate", "bits/sample over"),
+              ("tts_speakers", "wrote 4 wavs"),
+              ("serving_stream", "conditioned stream == one-shot"),
+              ("pool_serving", "sampled pool lane A == solo"))
+    started = []
+    try:
+        for name, _ in checks:
+            out = MESH_WORK / f"example_{name}"
+            started.append(start_counted(
+                f"samplernn_pase_tpu_torch.examples.{name}",
+                (str(out if name in ("train_and_generate", "tts_speakers")
+                     else out.with_suffix(".wav")),)))
+        for (name, ok), proc in zip(checks, started):
+            lines, n = finish_counted(proc)
+            print("  " + " | ".join(lines[-3:]))
+            require(any(ok in s for s in lines)
+                    and "device: cuda" in lines[0],
+                    f"example {name} did not print its check on the card")
+            by["examples"] = add_counts(by["examples"], n)
+    finally:
+        for *_, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for path, n in by.items():
+        print(f"phase 21 launches, {path}: {n} on {card}")
+    return by
+
+
 def check_bounds(entries):
     """No ``kernels`` entry, and no ``by_path`` or ``projection``
     sub-entry, may read faster than its bound: such a time is a
@@ -3533,10 +4175,39 @@ def main() -> int:
                                             joint_ms)
         print(f"phase 19 (config 4's TTS pipeline through the CLI): "
               f"{time.perf_counter() - t0:.1f} s")
-    except (SmokeFailure, subprocess.TimeoutExpired) as err:
+        # ---- 20-21. the mesh on the card; the remaining twins ----
+        shutil.rmtree(MESH_WORK, ignore_errors=True)
+        t0 = time.perf_counter()
+        c20 = mesh_phase(torch, dev, exp4, embs, wav_dir, card)
+        print(f"phase 20 (the mesh: one NCCL rank, two gloo ranks on the "
+              f"card): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c21 = twins_phase(card)
+        print(f"phase 21 (bench_host, perf_floor, the four examples): "
+              f"{time.perf_counter() - t0:.1f} s")
+    except (SmokeFailure, subprocess.TimeoutExpired, RuntimeError) as err:
         return fail(str(err))
     finally:
         shutil.rmtree(TTS_WORK, ignore_errors=True)
+        shutil.rmtree(MESH_WORK, ignore_errors=True)
+    # phases 20-21's launches; their K2 launches by the path that made
+    # them: phase 20's (its run_jobs) and perf_floor's config 4 metrics
+    # are config 4's, with one MLP fold per pool on each rank (two pools)
+    # and one for perf_floor's generator; the examples' small models are
+    # counted but weigh in no K2 time
+    c2021 = add_counts(c20, {})
+    for n in c21.values():
+        c2021 = add_counts(c2021, n)
+    c4_mesh = add_counts(c20, c21["c4"])
+    mesh_folds = 2 * 2 + 1
+    ex = c21["examples"]
+    ex_k2 = {"gemm_bias": ex["gemm_bias"] - ex["gemm_bias_cond"],
+             "gemm_bias_cond": ex["gemm_bias_cond"]}
+    if (c4_mesh["gemm_bias"] - 4 * c4_mesh["gemm_bias_cond"]
+            < mesh_folds * exp4.model.frame_sizes[0]):
+        return fail(f"config 4's K2 launches in phases 20-21 {c4_mesh} hold "
+                    "fewer than 3 projections a conditioned tier step and "
+                    "the MLP folds")
     # config 4's paths of phases 7, 8, 12, 16, 17 and 19, and their MLP
     # folds (one per request or pool, two in phase 7; phase 19 counts its
     # own)
@@ -3547,14 +4218,18 @@ def main() -> int:
     c4_gen = add_counts(c12, c16)
     c19_gen = c19["frame_decode"] - c19["frame_decode_lane_keys"]
 
-    # ---- 20. the result lines ----
+    # ---- 22. the result lines ----
     # K2 over the decode paths, each case weighted by its launches there;
     # phase 19's tier steps without conditioning rows are the flagship's
     # products (config 4's model has the flagship's widths)
-    k2_runs = {"flagship": launches["gemm_bias"] + c19_uncond,
-               "c2_3tier_lstm": c2_launches["gemm_bias"],
+    k2_runs = {"flagship": launches["gemm_bias"] + c19_uncond
+               + c21["flagship"]["gemm_bias"],
+               "c2_3tier_lstm": c2_launches["gemm_bias"]
+               + c21["c2"]["gemm_bias"],
                "stacked_flagship": s5_launches["gemm_bias"]}
     k2n = sum(k2_runs.values())
+    if c21["flagship"]["gemm_bias_cond"] or c21["c2"]["gemm_bias_cond"]:
+        return fail("conditioned K2 launches on an unconditioned path")
     k2_all = {key: sum(k2[p][key] * k2_runs[p] for p in k2) / k2n
               for key in ("ms", "plain", "lib", "bound")}
     k2_by = {}
@@ -3566,14 +4241,16 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:218",
          "launches": launches["frame_decode"] + s5_all["frame_decode"]
-         + c4_gen["frame_decode"] + c19_gen,
+         + c4_gen["frame_decode"] + c19_gen + c2021["frame_decode"]
+         - c2021["frame_decode_lane_keys"],
          "max_abs_err": err1,
          "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
          "library_ms": None, "us_per_step": ms1 * 1e3 / f1},
         {"name": "gemm_bias", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
-         "launches": k2n,
+         "launches": k2n + ex_k2["gemm_bias"],
+         "unweighted_launches": {"examples": ex_k2["gemm_bias"]},
          "max_abs_err": max(st["err"] for st in k2.values()),
          "ms": k2_all["ms"], "plain_ms": k2_all["plain"],
          "bound_ms": k2_all["bound"], "bound_by": max(k2_by, key=k2_by.get),
@@ -3586,14 +4263,16 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gru_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
          "launches": launches["gru_gates"] + s5_all["gru_gates"]
-         + c4_gen["gru_gates"] + c17["gru_gates"] + c19["gru_gates"],
+         + c4_gen["gru_gates"] + c17["gru_gates"] + c19["gru_gates"]
+         + c2021["gru_gates"],
          "max_abs_err": err3,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": lms3},
         {"name": "lstm_gates", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/lstm_gates.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/decode.py:153",
-         "launches": c2_launches["lstm_gates"], "max_abs_err": k6[0],
+         "launches": c2_launches["lstm_gates"] + c2021["lstm_gates"],
+         "max_abs_err": k6[0],
          "ms": k6[1], "plain_ms": k6[2], "bound_ms": k6[4],
          "bound_by": k6[5], "library_ms": k6[3]},
         # config 4's modes of the megakernel (megagen.py:196-220 tier_in,
@@ -3602,7 +4281,10 @@ def main() -> int:
         {"name": "gemm_bias_cond", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/gemm_bias.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
-         "launches": c4_all["gemm_bias_cond"], "max_abs_err": k2c["err"],
+         "launches": c4_all["gemm_bias_cond"] + c4_mesh["gemm_bias_cond"]
+         + ex_k2["gemm_bias_cond"],
+         "unweighted_launches": {"examples": ex_k2["gemm_bias_cond"]},
+         "max_abs_err": k2c["err"],
          "ms": k2c["ms"], "plain_ms": k2c["plain"],
          "bound_ms": k2c["bound"], "bound_by": max(k2c["by"],
                                                    key=k2c["by"].get),
@@ -3610,15 +4292,19 @@ def main() -> int:
          # the other K2 launches of those phases: per tier step 3 more
          # than the conditioned input, and the MLP folds
          "projection": {"launches": c4_all["gemm_bias"]
-                        - 4 * c4_all["gemm_bias_cond"]
-                        - c4_folds * exp4.model.frame_sizes[0] - c19_uncond,
+                        + c4_mesh["gemm_bias"]
+                        - 4 * (c4_all["gemm_bias_cond"]
+                               + c4_mesh["gemm_bias_cond"])
+                        - (c4_folds + mesh_folds)
+                        * exp4.model.frame_sizes[0] - c19_uncond,
                         "max_abs_err": k2p["err"], "ms": k2p["ms"],
                         "plain_ms": k2p["plain"], "bound_ms": k2p["bound"],
                         "library_ms": k2p["lib"]}},
         {"name": "frame_decode_lane_keys", "route": "cuda",
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/frame_decode.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/megagen.py:496",
-         "launches": c4_all["frame_decode_lane_keys"], "max_abs_err": err1k,
+         "launches": c4_all["frame_decode_lane_keys"]
+         + c2021["frame_decode_lane_keys"], "max_abs_err": err1k,
          "max_abs_err_at": "float32 B=8 f1=4 H=64",
          "rescore_bf16": k1c["agree"], "ms": k1c["ms"],
          "plain_ms": k1c["plain"], "bound_ms": k1c["bound"],
@@ -3630,7 +4316,7 @@ def main() -> int:
          "source": "samplernn_pase_tpu_torch/ops/kernels/csrc/codec.cu",
          "replaces": "samplernn_pase_tpu/ops/pallas/codec.py:35",
          "launches": s5_launches[f"codec_{d}"] + c4_gen[f"codec_{d}"]
-         + c17[f"codec_{d}"] + c19[f"codec_{d}"],
+         + c17[f"codec_{d}"] + c19[f"codec_{d}"] + c2021[f"codec_{d}"],
          "max_abs_err": k7[d]["err"], "ms": k7[d]["ms"],
          "plain_ms": k7[d]["plain"], "bound_ms": k7[d]["bound"],
          "bound_by": k7[d]["by"], "library_ms": None}
@@ -3663,8 +4349,9 @@ def main() -> int:
         for cell, st, seq_launches, tiers, nb in (
             ("gru", k4, add_counts(add_counts(k4_launches, s5_train),
                                    add_counts(add_counts(c4_gen, c17),
-                                              c19)), "64 and 16", BATCH),
-            ("lstm", k5, k5_launches, "64, 16 and 4",
+                                              add_counts(c19, c2021))),
+             "64 and 16", BATCH),
+            ("lstm", k5, add_counts(k5_launches, c2021), "64, 16 and 4",
              exp2.train.batch_size))
         for d in ("fwd", "bwd")
     ]}

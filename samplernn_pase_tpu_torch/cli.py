@@ -12,7 +12,18 @@ verbs with the same flags.
 ``--platform {auto,cuda,cpu}`` picks the device once, before any verb
 runs: ``auto`` and ``cuda`` need a CUDA device and exit naming
 ``--platform cpu`` when there is none; every module a verb calls gets
-that device explicitly.  ``main`` turns TF32 off for the process (float32
+that device explicitly.
+
+Under a world of ranks (``torchrun``'s ``WORLD_SIZE`` > 1) ``main``
+joins the default process group (NCCL on the card, each rank on
+``cuda:{LOCAL_RANK}``; gloo with ``--platform cpu``), or uses the one its
+caller initialized (ranks sharing one card over gloo run on the current
+CUDA device).  Only ``train`` runs there: it splits its batch over a
+``data`` mesh of the whole world (``parallel.mesh.make_mesh``), and a
+batch that does not divide over the world exits before any file is
+written (N ranks without a mesh would train N copies and race on the
+same files).  The other verbs exit under a world: the reference builds
+no mesh outside ``train``.  ``main`` turns TF32 off for the process (float32
 matmuls and cuDNN convolutions at full precision, as the reference runs
 at ``highest``).
 
@@ -123,9 +134,12 @@ def _restore(args):
 
 
 def cmd_train(args):
+    import torch.distributed as dist
+
     from samplernn_pase_tpu_torch import config as C
     from samplernn_pase_tpu_torch.data.dataset import (
         WavCorpus, synthetic_corpus)
+    from samplernn_pase_tpu_torch.parallel import mesh as pm
     from samplernn_pase_tpu_torch.train import trainer as tr
     from samplernn_pase_tpu_torch.train.checkpoint import CheckpointManager
     from samplernn_pase_tpu_torch.train.metrics import MetricsWriter
@@ -133,6 +147,13 @@ def cmd_train(args):
     dev = args.device
     exp = _load_exp(args)
     tcfg = exp.train
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if tcfg.batch_size % world:
+        sys.exit(f"error: batch_size {tcfg.batch_size} does not divide over "
+                 f"the world of {world} ranks; pass a --batch_size that "
+                 f"{world} divides")
+    mesh = pm.make_mesh() if world > 1 else None
+    chief = pm.is_chief(mesh)
     if args.dataset:
         corpus = WavCorpus.from_folder(
             args.dataset, exp.model.q_levels,
@@ -162,9 +183,11 @@ def cmd_train(args):
                             pase_params=pase_params, bn_state=bn_state)
 
     exp_dir = Path(tcfg.exp_dir)
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    (exp_dir / "config.json").write_text(C.to_json(exp))
-    writer = MetricsWriter(exp_dir / "metrics.jsonl")
+    if chief:                 # under a world the chief writes the files
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        (exp_dir / "config.json").write_text(C.to_json(exp))
+    writer = MetricsWriter(exp_dir / "metrics.jsonl" if chief else None,
+                           echo=chief)
     mgr = CheckpointManager(exp_dir / "ckpt", tcfg.max_to_keep)
 
     plugins = [
@@ -190,11 +213,12 @@ def cmd_train(args):
     if args.joint:
         from samplernn_pase_tpu_torch.train.joint import JointTrainer
         t = JointTrainer(exp.model, exp.pase, tcfg, corpus, plugins,
-                         device=dev, **joint_kwargs)
+                         device=dev, mesh=mesh, **joint_kwargs)
     else:
-        t = tr.Trainer(exp.model, tcfg, corpus, plugins, device=dev)
+        t = tr.Trainer(exp.model, tcfg, corpus, plugins, device=dev,
+                       mesh=mesh)
     if args.resume:
-        if t.restore(mgr):
+        if t.restore(mgr) and chief:
             print(f"[train] resumed at step {t.global_step}",
                   file=sys.stderr)
     t.run(_or(args.epochs, tcfg.epochs))
@@ -1035,12 +1059,60 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     args.device = _resolve_platform(args.platform)
-    # float32 products at full precision for the whole process: no TF32
-    # in matmuls or cuDNN convolutions, float32 reductions in 16-bit
-    # matmuls
-    from samplernn_pase_tpu_torch.ops.kernels.decode import plain_numerics
-    plain_numerics()
-    args.fn(args)
+    world, joined = _join_world(args.platform)
+    try:
+        if world > 1:
+            if args.verb != "train":
+                sys.exit(f"error: {args.verb} runs in one process; under a "
+                         f"world of {world} ranks only train runs (it "
+                         "splits its batch over the ranks)")
+            args.device = _rank_device(args.device)
+        # float32 products at full precision for the whole process: no
+        # TF32 in matmuls or cuDNN convolutions, float32 reductions in
+        # 16-bit matmuls
+        from samplernn_pase_tpu_torch.ops.kernels.decode import (
+            plain_numerics)
+        plain_numerics()
+        args.fn(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_world(platform: str):
+    """(world size, whether this call joined the default process group):
+    the caller's group when one is initialized; else, under a launcher's
+    ``WORLD_SIZE`` > 1, a new group over its environment (gloo with
+    ``--platform cpu``, NCCL otherwise)."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size(), False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("gloo" if platform == "cpu" else "nccl")
+        return dist.get_world_size(), True
+    return 1, False
+
+
+def _rank_device(dev):
+    """A rank's device under a world: ``cuda:{LOCAL_RANK}`` under NCCL
+    (``parallel.mesh.rank_device``), the current CUDA device for ranks
+    sharing a card over gloo, the CPU with ``--platform cpu``."""
+    import torch
+    import torch.distributed as dist
+
+    from samplernn_pase_tpu_torch.parallel.mesh import rank_device
+    backend = dist.get_backend()
+    if dev.type == "cpu":
+        if backend == "nccl":
+            sys.exit("error: --platform cpu under an NCCL group; run the "
+                     "ranks with gloo to train on the CPU")
+        return dev
+    if backend == "nccl":
+        return rank_device()
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 if __name__ == "__main__":

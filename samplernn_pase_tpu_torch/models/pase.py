@@ -34,12 +34,14 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from samplernn_pase_tpu_torch.config import PASEConfig
 from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.ops import init as winit
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+from samplernn_pase_tpu_torch.parallel.mesh import sum_differentiable
 from samplernn_pase_tpu_torch.tree import tree_map
 
 F32 = torch.float32
@@ -148,16 +150,28 @@ def init_bn_state(c_out: int) -> dict:
 
 
 def _bn_prelu(params, bn_state, x, *, train: bool, momentum: float = 0.1,
-              eps: float = 1e-5):
+              eps: float = 1e-5, group=None):
     """BatchNorm over (batch, time) and PReLU on float32 [B, C, T].  In
     train mode the batch's mean and biased variance normalise (with their
     gradients) and update the running state, which carries no autograd
     history; in eval mode the running state normalises and is returned
-    as it is."""
-    if train:
+    as it is.
+
+    ``group``: the mesh's ``data`` group when ``x`` is this rank's block
+    of the batch.  The statistics are then the whole batch's, in the same
+    two passes: the sum, then the centred sum of squares, each summed over
+    the group with the count (gradients flow back through both sums), so
+    the running state stays equal on every rank."""
+    if train and group is not None:
+        n = x.shape[0] * x.shape[2] * dist.get_world_size(group)
+        mean = sum_differentiable(torch.sum(x, dim=(0, 2)), group) / n
+        xc = x - mean[None, :, None]
+        var = sum_differentiable(torch.sum(xc * xc, dim=(0, 2)), group) / n
+    elif train:
         mean = torch.mean(x, dim=(0, 2))
         xc = x - mean[None, :, None]
         var = torch.mean(xc * xc, dim=(0, 2))
+    if train:
         new_state = {
             "mean": ((1 - momentum) * bn_state["mean"]
                      + momentum * mean.detach()),
@@ -176,12 +190,13 @@ def _bn_prelu(params, bn_state, x, *, train: bool, momentum: float = 0.1,
 
 def conv_block_apply(params, bn_state, x, stride: int, *, train: bool,
                      compute_dtype, momentum: float = 0.1,
-                     eps: float = 1e-5):
-    """x [B, C_in, T] -> ([B, C_out, ceil(T / stride)], new_bn_state)."""
+                     eps: float = 1e-5, group=None):
+    """x [B, C_in, T] -> ([B, C_out, ceil(T / stride)], new_bn_state);
+    ``group`` as in ``_bn_prelu``."""
     dt = torch_dtype(compute_dtype)
     out = _conv_same(x.to(dt), params["w"].to(dt), stride).to(F32)
     return _bn_prelu(params, bn_state, out, train=train, momentum=momentum,
-                     eps=eps)
+                     eps=eps, group=group)
 
 
 # ------------------------------------------------------------------ WaveFe
@@ -208,23 +223,26 @@ def init_pase(gen: torch.Generator, cfg: PASEConfig, device=None):
 
 
 def pase_apply(params, bn_state, wav, cfg: PASEConfig, *,
-               train: bool = False):
+               train: bool = False, group=None):
     """wav [B, T] float in [-1, 1] -> (emb [B, T // decimation, emb_dim]
-    float32, new_bn_state)."""
+    float32, new_bn_state).  ``group``: the mesh's ``data`` group when
+    ``wav`` is this rank's block of the batch (train-mode BatchNorm then
+    takes the whole batch's statistics)."""
     dt = torch_dtype(cfg.compute_dtype)
     with conv_numerics():
         # rectified band energies (SincNet front-end practice)
         x = torch.abs(sinc_conv(params["sinc"], wav, cfg))
         x, bn_sinc = _bn_prelu(params["bn_sinc"], bn_state["sinc"], x,
-                               train=train)
+                               train=train, group=group)
         new_blocks = []
         for blk, st, (_, _, stride) in zip(params["blocks"],
                                            bn_state["blocks"], cfg.blocks):
             x, st2 = conv_block_apply(blk, st, x, stride, train=train,
-                                      compute_dtype=dt)
+                                      compute_dtype=dt, group=group)
             new_blocks.append(st2)
         x, bn_proj = conv_block_apply(params["proj"], bn_state["proj"], x,
-                                      1, train=train, compute_dtype=dt)
+                                      1, train=train, compute_dtype=dt,
+                                      group=group)
     new_state = {"sinc": bn_sinc, "blocks": new_blocks, "proj": bn_proj}
     return x.transpose(1, 2), new_state
 

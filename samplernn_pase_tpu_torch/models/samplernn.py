@@ -36,6 +36,8 @@ from samplernn_pase_tpu_torch.ops.framing import frame_signal
 from samplernn_pase_tpu_torch.ops.kernels import rnn_train
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 from samplernn_pase_tpu_torch.ops.mulaw import levels_to_float
+from samplernn_pase_tpu_torch.parallel.mesh import (
+    all_reduce, axis_group, axis_size, model_group)
 from samplernn_pase_tpu_torch.tree import tree_map
 
 Params = dict
@@ -162,12 +164,15 @@ def speaker_cond(params: Params, cfg: SampleRNNConfig, speakers, cond,
 
 
 def forward(params: Params, cfg: SampleRNNConfig, inputs, state: State,
-            cond=None, speakers=None):
+            cond=None, speakers=None, mesh=None):
     """Teacher-forced forward pass.
 
     inputs [B, lookback + T] int levels; cond [B, T // cond_rate,
     cond_dim] or None; speakers [B] int ids or None (needs n_speakers).
-    Returns (logits [B, T, q_levels] float32, new_state)."""
+    Returns (logits [B, T, q_levels] float32, new_state).  Under a
+    ``mesh`` (``parallel.mesh``) every input is this rank's block of the
+    batch; with a ``model`` axis > 1 ``params`` hold this rank's MLP
+    shards (``shard_params``)."""
     dt = torch_dtype(cfg.compute_dtype)
     lookback = cfg.lookback
     t = inputs.shape[1] - lookback
@@ -202,30 +207,48 @@ def forward(params: Params, cfg: SampleRNNConfig, inputs, state: State,
                                             upper, ext, state[k])
     f1 = cfg.frame_sizes[0]
     mlp_samples = inputs[:, lookback - f1: lookback + t - 1]
-    logits = sample_mlp.mlp_apply(params["mlp"], mlp_samples, upper, f1, dt)
+    logits = sample_mlp.mlp_apply(params["mlp"], mlp_samples, upper, f1, dt,
+                                  model_group(mesh))
     return logits, tuple(new_states)
 
 
-def nll_bits(logits, targets, valid=None):
+def nll_bits(logits, targets, valid=None, mesh=None):
     """Cross-entropy in bits per sample: logsumexp minus the picked logit.
 
     ``valid`` (int [B] or None): the number of real targets per lane;
     positions at or past it are padding and masked out (sum over real
-    positions / their count).  An all-padding batch gives 0."""
+    positions / their count).  An all-padding batch gives 0.
+
+    Under a ``mesh`` the batch is this rank's block: its sum is divided by
+    the count over the whole ``data`` axis, so that the ranks' losses add
+    up to the global mean (ragged tails weigh as they do unsharded) and
+    their gradients sum to its gradient.  The value returned is this
+    rank's part; ``global_nll`` sums the parts."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets.long()[..., None])[..., 0]
     nats = lse - picked                                   # [B, T]
+    group = axis_group(mesh, "data")
     if valid is None:
-        return nats.mean() / math.log(2.0)
+        if group is None:
+            return nats.mean() / math.log(2.0)
+        count = nats.numel() * axis_size(mesh, "data")
+        return (nats.sum() / count) / math.log(2.0)
     mask = (torch.arange(nats.shape[-1], device=nats.device)[None, :]
             < valid.to(nats.device)[:, None]).to(nats.dtype)
-    return ((nats * mask).sum() / mask.sum().clamp(min=1.0)) / math.log(2.0)
+    count = all_reduce(mask.sum(), group)
+    return ((nats * mask).sum() / count.clamp(min=1.0)) / math.log(2.0)
+
+
+def global_nll(nll, mesh=None):
+    """The whole batch's NLL from the ranks' parts (``nll_bits``), on
+    every rank, without autograd history."""
+    return all_reduce(nll.detach(), axis_group(mesh, "data"))
 
 
 def loss_fn(params: Params, cfg: SampleRNNConfig, batch_inputs,
             batch_targets, state: State, cond=None, speakers=None,
-            valid=None):
+            valid=None, mesh=None):
     logits, new_state = forward(params, cfg, batch_inputs, state, cond,
-                                speakers)
-    return nll_bits(logits, batch_targets, valid), new_state
+                                speakers, mesh)
+    return nll_bits(logits, batch_targets, valid, mesh), new_state

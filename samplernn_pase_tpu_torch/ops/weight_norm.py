@@ -19,11 +19,22 @@ def make(weight: torch.Tensor) -> dict:
     return {"v": weight, "g": g}
 
 
-def resolve(w):
-    """Materialize a (possibly weight-normed) weight parameter."""
+def resolve(w, group=None):
+    """Materialize a (possibly weight-normed) weight parameter.
+
+    ``group``: the ``model`` group over which ``v``'s leading (normalized)
+    rows are split (a row-sharded ``w_out``): the squares are summed over
+    it, and the gradients of the replicated gain and of the sum come back
+    summed over the ranks (each rank's rows give a part of them).  Column
+    shards resolve locally."""
     if isinstance(w, dict) and "v" in w:
-        v = w["v"]
+        v, g = w["v"], w["g"]
         axes = tuple(range(v.ndim - 1))
-        norm = torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True) + 1e-12)
-        return w["g"] * v / norm
+        sq = torch.sum(v * v, dim=axes, keepdim=True)
+        if group is not None:
+            from samplernn_pase_tpu_torch.parallel.mesh import (
+                enter_model, sum_differentiable)
+            sq = sum_differentiable(sq, group)
+            g = enter_model(g, group)
+        return g * v / torch.sqrt(sq + 1e-12)
     return w

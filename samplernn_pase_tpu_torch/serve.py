@@ -41,6 +41,18 @@ its levels and rows and runs the model on them).
 (continuous batching), enqueue-ahead: chunk t+1 is launched before chunk
 t is read, and each chunk is copied into pinned host memory behind its
 own launch, so reading it waits for that copy only.
+
+Under a mesh (``parallel.mesh``, one process per rank) the lanes split
+over its ``data`` axis: rank r holds lanes [r n/dp, (r+1) n/dp), their
+states, windows, cursors, lane keys, noise positions and conditioning
+rows.  Every rank makes the same lifecycle calls and keeps the same free
+list, so a start returns the same lane everywhere; the owning rank alone
+does a join's, a prompt's or an extension's device work.  A lane's noise
+key is derived from its global index.  ``emit`` runs ``generate_levels``
+on the rank's block and gathers the whole [n_lanes, n] on every rank.
+The kernels fuse the whole MLP and its Gumbel-max, so a ``model`` axis
+> 1 does not split it here: the pool gathers MLP shards whole at
+construction and the ranks along ``model`` repeat the same lanes.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import samplernn
 from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
 from samplernn_pase_tpu_torch.ops.mulaw import quantize_zero
+from samplernn_pase_tpu_torch.parallel import mesh as pm
 from samplernn_pase_tpu_torch.tree import tree_map
 
 
@@ -135,15 +148,27 @@ class StreamPool:
     streams join or leave, and equals a solo
     ``StreamingGenerator(n_seqs=1, stream_keys=key)`` with the same key.
     Runs on ``device`` (default CUDA) through ``use_kernels``' route; the
-    kernel route prepares its weights once.
+    kernel route prepares its weights once.  ``mesh``: lanes split over
+    its ``data`` axis (see the module docstring); ``states``, ``hist``
+    and the other lane arrays then hold this rank's block.
     """
 
     def __init__(self, params, cfg: SampleRNNConfig, n_lanes: int,
                  temperature: float | None = 1.0, seed: int = 0,
                  use_kernels: bool | str | None = None,
-                 max_cond_frames: int = 1024, device=None):
+                 max_cond_frames: int = 1024, device=None, mesh=None):
         if n_lanes < 1:
             raise ValueError("n_lanes must be >= 1")
+        dp = pm.axis_size(mesh, "data")
+        if n_lanes % dp:
+            raise ValueError(f"n_lanes={n_lanes} must divide over the mesh "
+                             f"data axis ({dp})")
+        self.mesh = mesh
+        self.n_local = int(n_lanes) // dp          # this rank's lanes
+        self._lo = pm.axis_rank(mesh, "data") * self.n_local
+        if pm.axis_size(mesh, "model") > 1 and pm.mlp_is_sharded(
+                params["mlp"]):
+            params = pm.unshard_params(params, mesh)
         dev = self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(dev), params)
         self.cfg, self.n = cfg, int(n_lanes)
@@ -152,24 +177,31 @@ class StreamPool:
         self.use_kernels = use_kernels
         self._weights = gen.KernelWeights(cfg, dev, use_kernels)
         i64 = dict(dtype=torch.int64, device=dev)
-        self._lane_keys = torch.zeros((self.n, 2), **i64)
-        self._noise_pos = torch.zeros((self.n,), **i64)
+        nl = self.n_local
+        self._lane_keys = torch.zeros((nl, 2), **i64)
+        self._noise_pos = torch.zeros((nl,), **i64)
         self._epochs = [0] * self.n         # claims of each lane so far
-        self.states = samplernn.initial_state(self.params, cfg, self.n)
-        self.hist = torch.full((self.n, cfg.lookback),
+        self.states = samplernn.initial_state(self.params, cfg, nl)
+        self.hist = torch.full((nl, cfg.lookback),
                                quantize_zero(cfg.q_levels), dtype=torch.int32,
                                device=dev)
         self._free = list(range(self.n - 1, -1, -1))   # pop() -> lane 0 first
         self.active: set[int] = set()
         # device memory: n_lanes x cap x cond_dim x 4 bytes
         self._f_cap = int(max_cond_frames)
-        self._cond_buf = (torch.zeros((self.n, self._f_cap, cfg.cond_dim),
+        self._cond_buf = (torch.zeros((nl, self._f_cap, cfg.cond_dim),
                                       device=dev)
                           if cfg.cond_dim else None)
         self._cond_len = [0] * self.n       # unpadded rows per lane
-        self._cursors = torch.zeros((self.n,), **i64)    # in samples
+        self._cursors = torch.zeros((nl,), **i64)        # in samples
         self._speakers = (np.zeros((self.n,), np.int64)
                           if cfg.n_speakers else None)
+
+    def _local(self, lane: int):
+        """Lane ``lane``'s index in this rank's block, or None when
+        another rank holds it."""
+        i = lane - self._lo
+        return i if 0 <= i < self.n_local else None
 
     # -- lifecycle -------------------------------------------------------
     def start(self, cond=None, speaker=None, seed_levels=None,
@@ -244,24 +276,32 @@ class StreamPool:
         # claim and commit; only prime() below can still raise
         lane = self._free.pop() if lane is None else (
             self._free.remove(lane) or lane)
-        skey = None
+        words = None
         if self.temperature is not None:
+            # the global lane index: a lane samples the same noise on any
+            # mesh
             words = (stream_key if stream_key is not None
                      else lane_key(self.seed, lane, self._epochs[lane]))
-            skey = device_put_batch(words.astype(np.int64), self.device)
         self._epochs[lane] += 1
-        cond_dev = spk = None
         if self.cfg.cond_dim:
             self._ensure_cap(cond.shape[0])
             self._cond_len[lane] = cond.shape[0]
-            cond_dev = device_put_batch(
-                gen.fit_cond_stream(cond, self._f_cap), self.device)
+        spk = None
         if self.cfg.n_speakers:
             self._speakers[lane] = int(speaker)
             spk = int(speaker)
+        local = self._local(lane)
+        if local is None:                   # another rank's lane
+            self.active.add(lane)
+            return lane
+        skey = (None if words is None
+                else device_put_batch(words.astype(np.int64), self.device))
+        cond_dev = (device_put_batch(gen.fit_cond_stream(cond, self._f_cap),
+                                     self.device)
+                    if self.cfg.cond_dim else None)
         (self.states, self.hist, self._lane_keys, self._noise_pos,
          self._cursors, self._cond_buf) = _pool_join(
-            self.params, self.cfg, self.states, self.hist, lane,
+            self.params, self.cfg, self.states, self.hist, local,
             self._lane_keys, self._noise_pos, skey, self._cursors,
             self._cond_buf, cond_dev, spk)
         if seed is not None:
@@ -274,9 +314,9 @@ class StreamPool:
                 # the lane's state was reset above: returning it is safe
                 self._free.append(lane)
                 raise
-            self.states = _scatter_lane(self.states, s1, lane)
+            self.states = _scatter_lane(self.states, s1, local)
             hist = self.hist.clone()
-            hist[lane] = h1[0]
+            hist[local] = h1[0]
             self.hist = hist
         self.active.add(lane)
         return lane
@@ -289,7 +329,7 @@ class StreamPool:
             return
         new_cap = max(gen.next_pow2(frames), 2 * self._f_cap)
         pad = self._cond_buf[:, -1:, :].expand(
-            self.n, new_cap - self._f_cap, self.cfg.cond_dim)
+            self.n_local, new_cap - self._f_cap, self.cfg.cond_dim)
         self._cond_buf = torch.cat([self._cond_buf, pad], dim=1)
         self._f_cap = new_cap
 
@@ -312,12 +352,15 @@ class StreamPool:
                 f"got {rows.shape}")
         ln, k = self._cond_len[lane], rows.shape[0]
         self._ensure_cap(ln + k)
+        self._cond_len[lane] = ln + k
+        local = self._local(lane)
+        if local is None:                   # another rank's lane
+            return self
         rows_dev = device_put_batch(
             gen.fit_cond_stream(rows, gen.next_pow2(k)), self.device)
         spk = int(self._speakers[lane]) if self.cfg.n_speakers else None
-        self._cond_buf = _pool_extend(self.params, self._cond_buf, lane, ln,
+        self._cond_buf = _pool_extend(self.params, self._cond_buf, local, ln,
                                       rows_dev, spk)
-        self._cond_len[lane] = ln + k
         return self
 
     def stop(self, lane: int):
@@ -331,14 +374,15 @@ class StreamPool:
     # -- decode ----------------------------------------------------------
     def emit(self, n_samples: int) -> torch.Tensor:
         """Advance every lane ``n_samples`` and return [n_lanes, n_samples]
-        int32 levels on the device."""
+        int32 levels on the device (under a mesh: this rank's lanes
+        generated, every rank's gathered)."""
         if n_samples % self.cfg.lookback:
             raise ValueError(f"n_samples must be a multiple of lookback "
                              f"({self.cfg.lookback})")
         cond = self._cond_buf if self.cfg.cond_dim else None
         sampled = self.temperature is not None
         levels, self.states, self.hist = gen.generate_levels(
-            self.params, self.cfg, self.n, n_samples, self.temperature,
+            self.params, self.cfg, self.n_local, n_samples, self.temperature,
             self.seed, cond=cond, initial_states=self.states,
             hist=self.hist, use_kernels=self.use_kernels, return_state=True,
             cond_pos0=self._cursors,
@@ -347,7 +391,7 @@ class StreamPool:
             kernel_weights=self._weights(self.params))
         self._cursors, self._noise_pos = _advance(self._cursors,
                                                   self._noise_pos, n_samples)
-        return levels
+        return pm.gather_batch(self.mesh, levels)
 
     def emit_waveform(self, n_samples: int) -> torch.Tensor:
         return gen.decode_waveform(self.emit(n_samples), self.cfg)
@@ -406,7 +450,8 @@ def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
              chunk: int | None = None, temperature: float | None = 1.0,
              seed: int = 0, use_kernels: bool | str | None = None,
              max_cond_frames: int = 1024, enqueue_ahead: bool = True,
-             on_done=None, retain_results: bool = True, device=None):
+             on_done=None, retain_results: bool = True, device=None,
+             mesh=None):
     """Continuous-batching batch synthesis: drain a list of variable-length
     jobs through one :class:`StreamPool` of ``n_lanes`` lanes, one
     generation call per chunk for all lanes.  Each job claims a free lane,
@@ -441,7 +486,9 @@ def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
     samples computed), ``utilization`` (their ratio) and ``wall_s``.
     ``on_done(id, levels)`` fires as each job's last chunk is read;
     ``retain_results=False`` keeps no audio (results is empty) for a
-    consumer that streams jobs out through ``on_done``."""
+    consumer that streams jobs out through ``on_done``.  ``mesh``: the
+    pool's lanes split over its ``data`` axis; every rank runs the same
+    schedule and returns the same results."""
     import time
 
     jobs = list(jobs)
@@ -460,7 +507,8 @@ def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
 
     pool = StreamPool(params, cfg, n_lanes=n_lanes, temperature=temperature,
                       seed=seed, use_kernels=use_kernels,
-                      max_cond_frames=max_cond_frames, device=device)
+                      max_cond_frames=max_cond_frames, device=device,
+                      mesh=mesh)
     results: dict = {}
     pieces: dict = {}                     # id -> [numpy chunk, ...]
     got: dict = {}                        # id -> samples read so far

@@ -30,10 +30,10 @@ from samplernn_pase_tpu_torch.config import PASEConfig, SampleRNNConfig
 from samplernn_pase_tpu_torch.models import pase as pase_mod
 from samplernn_pase_tpu_torch.models import samplernn
 from samplernn_pase_tpu_torch.train.optim import Optimizer, apply_updates
+from samplernn_pase_tpu_torch.parallel.mesh import axis_group
 from samplernn_pase_tpu_torch.train.trainer import (
-    LoggerPlugin, Plugin, Trainer, _at, _reset)
-from samplernn_pase_tpu_torch.tree import (
-    tree_leaves, tree_map, tree_unflatten)
+    LoggerPlugin, Plugin, Trainer, _at, _grads, _reset)
+from samplernn_pase_tpu_torch.tree import tree_map
 
 
 def init_joint(gen: torch.Generator, model_cfg: SampleRNNConfig,
@@ -55,13 +55,15 @@ def init_joint(gen: torch.Generator, model_cfg: SampleRNNConfig,
 
 
 def joint_cond(pase_params, bn_state, model_cfg, pase_cfg, inputs, *,
-               train: bool):
+               train: bool, mesh=None):
     """Chunk levels [B, lookback + T] -> (cond [B, T // decimation, D],
     bn_state), the encoder fed the chunk's waveform through the model's
-    codec, so it sees the audio the quantizer encoded."""
+    codec, so it sees the audio the quantizer encoded.  Under ``mesh`` the
+    chunk is this rank's block and train-mode BatchNorm takes the whole
+    batch's statistics."""
     wav = generate.decode_waveform(inputs[:, model_cfg.lookback:], model_cfg)
     return pase_mod.pase_apply(pase_params, bn_state, wav, pase_cfg,
-                               train=train)
+                               train=train, group=axis_group(mesh, "data"))
 
 
 def _check_cfgs(model_cfg, pase_cfg):
@@ -72,44 +74,46 @@ def _check_cfgs(model_cfg, pase_cfg):
 
 
 def _train_one(mcfg, pcfg, tx, freeze_pase, params, opt_state, bn_state,
-               hiddens, inputs, targets, resets, speakers, valid):
+               hiddens, inputs, targets, resets, speakers, valid, mesh=None):
     hiddens = _reset(params["srnn"], mcfg, hiddens, resets)
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     with pase_mod.conv_numerics():
         cond, new_bn = joint_cond(p["pase"], bn_state, mcfg, pcfg, inputs,
-                                  train=True)
+                                  train=True, mesh=mesh)
         if freeze_pase:
             cond = cond.detach()
         nll, new_h = samplernn.loss_fn(p["srnn"], mcfg, inputs, targets,
-                                       hiddens, cond, speakers, valid)
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(nll, leaves, allow_unused=True)
-    grads = tree_unflatten(p, [torch.zeros_like(x) if g is None else g
-                               for x, g in zip(leaves, grads)])
-    updates, opt_state = tx.update(grads, opt_state, params)
+                                       hiddens, cond, speakers, valid, mesh)
+        grads = _grads(nll, p, mesh)
+    updates, opt_state = tx.update(grads, opt_state, params, mesh=mesh)
     params = apply_updates(params, updates)
     return (params, opt_state, new_bn, tuple(h.detach() for h in new_h),
-            nll.detach())
+            samplernn.global_nll(nll, mesh))
 
 
 def make_joint_train_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
-                          tx: Optimizer, freeze_pase: bool = False):
+                          tx: Optimizer, freeze_pase: bool = False,
+                          mesh=None):
     """The end-to-end step over {"srnn", "pase"}: (params, opt_state,
     bn_state, hiddens, inputs, targets, resets[, speakers, valid]) ->
-    (params, opt_state, bn_state, hiddens, nll_bits)."""
+    (params, opt_state, bn_state, hiddens, nll_bits).  Under ``mesh`` as
+    ``trainer.make_train_step``: the encoder is replicated, its gradients
+    are summed over ``data`` with the SampleRNN half's, and its BatchNorm
+    takes the whole batch's statistics."""
     _check_cfgs(model_cfg, pase_cfg)
 
     def step(params, opt_state, bn_state, hiddens, inputs, targets, resets,
              speakers=None, valid=None):
         return _train_one(model_cfg, pase_cfg, tx, freeze_pase, params,
                           opt_state, bn_state, hiddens, inputs, targets,
-                          resets, speakers, valid)
+                          resets, speakers, valid, mesh)
 
     return step
 
 
 def make_joint_multi_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
-                          tx: Optimizer, freeze_pase: bool = False):
+                          tx: Optimizer, freeze_pase: bool = False,
+                          mesh=None):
     """K joint steps in one call, batches staged [K, B, ...]; the math is
     K single steps.  Returns (params, opt_state, bn_state, hiddens, nlls
     [K])."""
@@ -122,7 +126,7 @@ def make_joint_multi_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
             params, opt_state, bn_state, hiddens, nll = _train_one(
                 model_cfg, pase_cfg, tx, freeze_pase, params, opt_state,
                 bn_state, hiddens, xs[k], ys[k], rs[k], _at(speakers, k),
-                _at(valid, k))
+                _at(valid, k), mesh)
             nlls.append(nll)
         return params, opt_state, bn_state, hiddens, torch.stack(nlls)
 
@@ -130,18 +134,19 @@ def make_joint_multi_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
 
 
 def _eval_one(mcfg, pcfg, params, bn_state, hiddens, inputs, targets, resets,
-              speakers, valid):
+              speakers, valid, mesh=None):
     with torch.no_grad():
         hiddens = _reset(params["srnn"], mcfg, hiddens, resets)
         cond, _ = joint_cond(params["pase"], bn_state, mcfg, pcfg, inputs,
                              train=False)
         nll, new_h = samplernn.loss_fn(params["srnn"], mcfg, inputs,
                                        targets, hiddens, cond, speakers,
-                                       valid)
-    return new_h, nll
+                                       valid, mesh)
+    return new_h, samplernn.global_nll(nll, mesh)
 
 
-def make_joint_eval_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig):
+def make_joint_eval_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
+                         mesh=None):
     """Held-out NLL with joint conditioning (the encoder in eval mode:
     running statistics, no update): (params, bn_state, hiddens, inputs,
     targets, resets[, speakers, valid]) -> (hiddens, nll_bits)."""
@@ -150,13 +155,13 @@ def make_joint_eval_step(model_cfg: SampleRNNConfig, pase_cfg: PASEConfig):
     def step(params, bn_state, hiddens, inputs, targets, resets,
              speakers=None, valid=None):
         return _eval_one(model_cfg, pase_cfg, params, bn_state, hiddens,
-                         inputs, targets, resets, speakers, valid)
+                         inputs, targets, resets, speakers, valid, mesh)
 
     return step
 
 
 def make_joint_multi_eval_step(model_cfg: SampleRNNConfig,
-                               pase_cfg: PASEConfig):
+                               pase_cfg: PASEConfig, mesh=None):
     """K staged joint eval batches [K, B, ...] in one call; returns
     (hiddens, nlls [K])."""
     _check_cfgs(model_cfg, pase_cfg)
@@ -167,7 +172,7 @@ def make_joint_multi_eval_step(model_cfg: SampleRNNConfig,
         for k in range(xs.shape[0]):
             hiddens, nll = _eval_one(model_cfg, pase_cfg, params, bn_state,
                                      hiddens, xs[k], ys[k], rs[k],
-                                     _at(speakers, k), _at(valid, k))
+                                     _at(speakers, k), _at(valid, k), mesh)
             nlls.append(nll)
         return hiddens, torch.stack(nlls)
 
@@ -195,14 +200,17 @@ class JointTrainer(Trainer):
     "pase"}, "bn": bn_state}``.  ``seed`` draws the SampleRNN and then the
     encoder (unless ``pase_params`` and ``bn_state`` are given);
     ``params`` (the joint tree) needs ``bn_state``.  A corpus with cached
-    conditioning is refused: the conditioning comes from the encoder."""
+    conditioning is refused: the conditioning comes from the encoder.
+    ``mesh`` as ``Trainer``'s: the encoder and its BatchNorm state are
+    replicated, and stay equal on every rank (the statistics are the whole
+    batch's; a restore reads the same state everywhere)."""
 
     metric_tags = {"mode": "joint"}
 
     def __init__(self, model_cfg: SampleRNNConfig, pase_cfg: PASEConfig,
                  train_cfg, corpus, plugins=(), params=None, bn_state=None,
                  seed: int | None = None, freeze_pase: bool = False,
-                 pase_params=None, device=None):
+                 pase_params=None, device=None, mesh=None):
         _check_cfgs(model_cfg, pase_cfg)
         if getattr(corpus, "conditioning", None) is not None:
             raise ValueError(
@@ -217,7 +225,7 @@ class JointTrainer(Trainer):
         self.bn_state = bn_state
         self._migrated_legacy_bias = False
         super().__init__(model_cfg, train_cfg, corpus, plugins,
-                         params=params, seed=seed, device=device)
+                         params=params, seed=seed, device=device, mesh=mesh)
         self.bn_state = tree_map(lambda t: t.to(self.device), self.bn_state)
 
     # -- mode hooks ------------------------------------------------------
@@ -232,13 +240,14 @@ class JointTrainer(Trainer):
 
     def _build_steps(self):
         multi = self.train_cfg.steps_per_call > 1
-        m, p = self.model_cfg, self.pase_cfg
+        m, p, mesh = self.model_cfg, self.pase_cfg, self.data_mesh
         self._train_step = make_joint_train_step(
-            m, p, self.tx, freeze_pase=self.freeze_pase)
+            m, p, self.tx, freeze_pase=self.freeze_pase, mesh=mesh)
         self._multi_step = (make_joint_multi_step(
-            m, p, self.tx, freeze_pase=self.freeze_pase) if multi else None)
-        self._eval_step = make_joint_eval_step(m, p)
-        self._multi_eval_step = (make_joint_multi_eval_step(m, p)
+            m, p, self.tx, freeze_pase=self.freeze_pase, mesh=mesh)
+            if multi else None)
+        self._eval_step = make_joint_eval_step(m, p, mesh)
+        self._multi_eval_step = (make_joint_multi_eval_step(m, p, mesh)
                                  if multi else None)
 
     def _step_single(self, args, kwargs):

@@ -4,8 +4,11 @@ the port's parameter trees (dicts and lists of tensors) with optax's
 formulas.
 
 ``make_optimizer`` returns an ``Optimizer`` with optax's two functions:
-``init(params) -> state`` and ``update(grads, state, params) -> (updates,
-state)``; ``apply_updates(params, updates)`` adds them.  The state is
+``init(params) -> state`` and ``update(grads, state, params, mesh=None)
+-> (updates, state)``; ``apply_updates(params, updates)`` adds them.
+Under a mesh (``parallel.mesh``) the gradients are already summed over
+``data`` and the clip's global norm counts each model-sharded leaf once
+over its shards.  The state is
 ``{"count": int, "mu": tree, "nu": tree}`` with zero moments at init,
 the same values as optax's ``adam`` state.
 """
@@ -17,7 +20,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
+from samplernn_pase_tpu_torch.parallel.mesh import grad_sq_norm
+from samplernn_pase_tpu_torch.tree import tree_map
 
 
 def make_schedule(lr: float, schedule: str = "constant",
@@ -72,10 +76,10 @@ def make_optimizer(lr: float = 1e-3, grad_clip: float = 1.0,
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, mesh=None):
         if grad_clip and grad_clip > 0:
-            leaves = tree_leaves(grads)
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+            # a model-sharded leaf's squares summed over its shards
+            g_norm = torch.sqrt(grad_sq_norm(grads, mesh))
             keep = g_norm < grad_clip
             grads = tree_map(
                 lambda g: torch.where(keep, g, g / g_norm * grad_clip),

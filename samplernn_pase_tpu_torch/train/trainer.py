@@ -26,6 +26,7 @@ from samplernn_pase_tpu_torch.config import SampleRNNConfig, TrainConfig
 from samplernn_pase_tpu_torch.data.dataset import device_put_batch
 from samplernn_pase_tpu_torch.device import resolve_device
 from samplernn_pase_tpu_torch.models import samplernn
+from samplernn_pase_tpu_torch.parallel import mesh as pm
 from samplernn_pase_tpu_torch.train.optim import (
     Optimizer, apply_updates, make_optimizer)
 from samplernn_pase_tpu_torch.tree import (
@@ -39,31 +40,45 @@ def _reset(params, cfg, hiddens, resets):
                                      resets)
 
 
-def _train_one(cfg, tx, params, opt_state, hiddens, inputs, targets, resets,
-               cond, speakers, valid):
-    hiddens = _reset(params, cfg, hiddens, resets)
-    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    nll, new_h = samplernn.loss_fn(p, cfg, inputs, targets, hiddens, cond,
-                                   speakers, valid)
+def _grads(nll, p, mesh):
+    """d nll / d p as a tree (zeros where unused), summed over the mesh's
+    ``data`` axis."""
     leaves = tree_leaves(p)
     grads = torch.autograd.grad(nll, leaves, allow_unused=True)
     grads = tree_unflatten(p, [torch.zeros_like(x) if g is None else g
                                for x, g in zip(leaves, grads)])
-    updates, opt_state = tx.update(grads, opt_state, params)
+    return pm.all_reduce_grads(grads, mesh)
+
+
+def _train_one(cfg, tx, params, opt_state, hiddens, inputs, targets, resets,
+               cond, speakers, valid, mesh=None):
+    hiddens = _reset(params, cfg, hiddens, resets)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    nll, new_h = samplernn.loss_fn(p, cfg, inputs, targets, hiddens, cond,
+                                   speakers, valid, mesh)
+    grads = _grads(nll, p, mesh)
+    updates, opt_state = tx.update(grads, opt_state, params, mesh=mesh)
     params = apply_updates(params, updates)
     return (params, opt_state, tuple(h.detach() for h in new_h),
-            nll.detach())
+            samplernn.global_nll(nll, mesh))
 
 
-def make_train_step(cfg: SampleRNNConfig, tx: Optimizer):
+def make_train_step(cfg: SampleRNNConfig, tx: Optimizer, mesh=None):
     """The TBPTT train step: (params, opt_state, hiddens, inputs, targets,
     resets[, cond, speakers, valid]) -> (params, opt_state, hiddens,
-    nll_bits)."""
+    nll_bits).
+
+    Under ``mesh`` (``parallel.mesh``) the batch arguments and hiddens are
+    this rank's block over ``data`` (``batch_sharding``,
+    ``state_sharding``), parameters and optimizer state are replicated or,
+    on a ``model`` axis > 1, this rank's MLP shards (``shard_params``),
+    the gradients are summed over ``data`` before clipping, and the NLL
+    returned is the whole batch's."""
 
     def step(params, opt_state, hiddens, inputs, targets, resets, cond=None,
              speakers=None, valid=None):
         return _train_one(cfg, tx, params, opt_state, hiddens, inputs,
-                          targets, resets, cond, speakers, valid)
+                          targets, resets, cond, speakers, valid, mesh)
 
     return step
 
@@ -72,8 +87,9 @@ def _at(v, k):
     return None if v is None else v[k]
 
 
-def make_multi_train_step(cfg: SampleRNNConfig, tx: Optimizer):
-    """K train steps in one call: batches staged as [K, B, ...]; the math
+def make_multi_train_step(cfg: SampleRNNConfig, tx: Optimizer, mesh=None):
+    """K train steps in one call: batches staged as [K, B, ...] (under
+    ``mesh``, this rank's block of axis 1: ``staged_sharding``); the math
     is K single steps.  Returns (params, opt_state, hiddens, nlls [K])."""
 
     def multi(params, opt_state, hiddens, xs, ys, rs, cond=None,
@@ -82,7 +98,7 @@ def make_multi_train_step(cfg: SampleRNNConfig, tx: Optimizer):
         for k in range(xs.shape[0]):
             params, opt_state, hiddens, nll = _train_one(
                 cfg, tx, params, opt_state, hiddens, xs[k], ys[k], rs[k],
-                _at(cond, k), _at(speakers, k), _at(valid, k))
+                _at(cond, k), _at(speakers, k), _at(valid, k), mesh)
             nlls.append(nll)
         return params, opt_state, hiddens, torch.stack(nlls)
 
@@ -90,29 +106,30 @@ def make_multi_train_step(cfg: SampleRNNConfig, tx: Optimizer):
 
 
 def _eval_one(cfg, params, hiddens, inputs, targets, resets, cond, speakers,
-              valid):
+              valid, mesh=None):
     with torch.no_grad():
         hiddens = _reset(params, cfg, hiddens, resets)
         nll, new_h = samplernn.loss_fn(params, cfg, inputs, targets, hiddens,
-                                       cond, speakers, valid)
-    return new_h, nll
+                                       cond, speakers, valid, mesh)
+    return new_h, samplernn.global_nll(nll, mesh)
 
 
-def make_eval_step(cfg: SampleRNNConfig):
+def make_eval_step(cfg: SampleRNNConfig, mesh=None):
     """(params, hiddens, inputs, targets, resets[, cond, speakers, valid])
-    -> (hiddens, nll_bits), without gradients."""
+    -> (hiddens, nll_bits), without gradients; under ``mesh`` as
+    ``make_train_step``, the NLL the whole batch's."""
 
     def step(params, hiddens, inputs, targets, resets, cond=None,
              speakers=None, valid=None):
         return _eval_one(cfg, params, hiddens, inputs, targets, resets, cond,
-                         speakers, valid)
+                         speakers, valid, mesh)
 
     return step
 
 
-def make_multi_eval_step(cfg: SampleRNNConfig):
+def make_multi_eval_step(cfg: SampleRNNConfig, mesh=None):
     """K staged eval batches [K, B, ...] in one call; returns (hiddens,
-    nlls [K]), each the masked mean of its batch."""
+    nlls [K]), each the masked mean of its (whole) batch."""
 
     def multi(params, hiddens, xs, ys, rs, cond=None, speakers=None,
               valid=None):
@@ -120,7 +137,7 @@ def make_multi_eval_step(cfg: SampleRNNConfig):
         for k in range(xs.shape[0]):
             hiddens, nll = _eval_one(cfg, params, hiddens, xs[k], ys[k],
                                      rs[k], _at(cond, k), _at(speakers, k),
-                                     _at(valid, k))
+                                     _at(valid, k), mesh)
             nlls.append(nll)
         return hiddens, torch.stack(nlls)
 
@@ -148,11 +165,12 @@ class LoggerPlugin(Plugin):
         self.writer, self.every = writer, every
 
     def on_step(self, trainer, step, metrics):
-        if step % self.every == 0:
+        if step % self.every == 0 and trainer.is_chief:
             self.writer.write(step=step, split="train", **metrics)
 
     def on_epoch_end(self, trainer, epoch):
-        self.writer.write(epoch=epoch, event="epoch_end")
+        if trainer.is_chief:
+            self.writer.write(epoch=epoch, event="epoch_end")
 
 
 class ValidationPlugin(Plugin):
@@ -160,7 +178,11 @@ class ValidationPlugin(Plugin):
         self.writer, self.every = writer, every_steps
 
     def _record(self, trainer, nll, **where):
+        # every rank validates (the eval steps sum over the mesh); the
+        # chief writes
         trainer.last_val_nll = nll
+        if not trainer.is_chief:
+            return
         extra = {}
         if trainer.val_is_train_fallback:
             # the corpus has no val split and the batcher fell back to the
@@ -190,10 +212,14 @@ class CheckpointPlugin(Plugin):
             metrics = {"val_nll_bits": float(trainer.last_val_nll)}
         # cursor = (epoch, last trained batch idx, next global step):
         # restore() skips batches <= batch_idx and numbers the first batch
-        # after the resume next_step, so nothing is trained or logged twice
+        # after the resume next_step, so nothing is trained or logged twice.
+        # Under a mesh every rank gathers the hiddens (a collective), then
+        # the chief alone writes the unsharded checkpoint
+        hiddens = pm.gather_state(trainer.data_mesh, trainer.hiddens)
+        if not trainer.is_chief:
+            return
         self.mgr.save(
-            step, trainer._ckpt_params(), trainer.opt_state,
-            trainer.hiddens,
+            step, trainer._ckpt_params(), trainer.opt_state, hiddens,
             cursor=np.asarray([trainer.epoch, trainer.batch_idx,
                                next_step]),
             metrics=metrics)
@@ -275,7 +301,9 @@ class GeneratorPlugin(Plugin):
             write_wav(self.dir / f"{tag}_seq{i}{spk}.wav", wav[i], self.sr)
 
     def on_step(self, trainer, step, metrics):
-        if self.every and step > 0 and step % self.every == 0:
+        # the chief alone generates (no collective inside)
+        if (self.every and step > 0 and step % self.every == 0
+                and trainer.is_chief):
             self._generate(trainer, f"step{step:08d}")
 
 
@@ -290,16 +318,34 @@ class Trainer:
     group's NLLs ("sync") and running plugin hooks ("plugins").  With
     ``train_cfg.profile_dir``, steps 10-12 are traced with torch.profiler
     into that directory, and ``profile`` holds the trace (its profiler and
-    the traced span's wall time)."""
+    the traced span's wall time).
+
+    ``mesh`` (``parallel.mesh``; one process per rank): the batch and the
+    hiddens are split over its ``data`` axis, parameters and optimizer
+    state replicated (a ``model`` axis only repeats the work, as the
+    reference's ``Trainer`` replicates params).  Every rank reads the
+    same corpus in the same order and trains on its block of each batch;
+    ``device`` is the rank's own (``parallel.mesh.rank_device``) and every
+    rank must start from the same parameters (``seed``).  Files are
+    written by the chief alone (``is_chief``): the logger's and the
+    validation's lines, the checkpoints (unsharded, the hiddens gathered
+    first on every rank) and the generated wavs."""
 
     def __init__(self, model_cfg: SampleRNNConfig, train_cfg: TrainConfig,
                  corpus, plugins: Sequence[Plugin] = (), params=None,
-                 seed: int | None = None, device=None):
+                 seed: int | None = None, device=None, mesh=None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.corpus = corpus
         self.plugins = list(plugins)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_mesh = pm.data_mesh(mesh)
+        dp = pm.axis_size(mesh, "data")
+        if train_cfg.batch_size % dp:
+            raise ValueError(f"batch_size={train_cfg.batch_size} must divide "
+                             f"over the mesh data axis ({dp})")
+        self.local_batch = train_cfg.batch_size // dp
         seed = seed if seed is not None else train_cfg.seed
         self.params = (tree_map(lambda t: t.to(self.device), params)
                        if params is not None else self._init_params(seed))
@@ -310,7 +356,7 @@ class Trainer:
             decay_steps=train_cfg.decay_steps)
         self.opt_state = self.tx.init(self.params)
         self.hiddens = samplernn.initial_state(
-            self._model_params(), model_cfg, train_cfg.batch_size)
+            self._model_params(), model_cfg, self.local_batch)
         self._build_steps()
         self.global_step = 0
         self.epoch = 0
@@ -331,6 +377,12 @@ class Trainer:
     # -- mode hooks (overridden by a joint trainer) ----------------------
     metric_tags: dict = {}   # extra key/values stamped onto step metrics
 
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process writes the run's files (always, without a
+        mesh)."""
+        return pm.is_chief(self.mesh)
+
     def _init_params(self, seed):
         return samplernn.init_params(torch.Generator().manual_seed(seed),
                                      self.model_cfg, self.device)
@@ -341,11 +393,12 @@ class Trainer:
 
     def _build_steps(self):
         multi = self.train_cfg.steps_per_call > 1
-        self._train_step = make_train_step(self.model_cfg, self.tx)
-        self._multi_step = (make_multi_train_step(self.model_cfg, self.tx)
+        m, mesh = self.model_cfg, self.data_mesh
+        self._train_step = make_train_step(m, self.tx, mesh)
+        self._multi_step = (make_multi_train_step(m, self.tx, mesh)
                             if multi else None)
-        self._eval_step = make_eval_step(self.model_cfg)
-        self._multi_eval_step = (make_multi_eval_step(self.model_cfg)
+        self._eval_step = make_eval_step(m, mesh)
+        self._multi_eval_step = (make_multi_eval_step(m, mesh)
                                  if multi else None)
 
     def _ckpt_params(self):
@@ -390,8 +443,11 @@ class Trainer:
                 self.host_s["data"] += time.perf_counter() - t0
             yield item
 
-    def _put(self, *arrays):
-        return device_put_batch(arrays, self.device)
+    def _put(self, *arrays, dim: int = 0):
+        """Host arrays on the device: under a mesh, this rank's block of
+        their batch axis ``dim`` (0, or 1 for [K, B, ...] stages)."""
+        shard = pm.Sharding(self.data_mesh, dim).shard
+        return device_put_batch(tuple(shard(a) for a in arrays), self.device)
 
     @staticmethod
     def _split_batch(item):
@@ -484,9 +540,10 @@ class Trainer:
         staged = self._stage_group(group)   # overlaps the previous group
         self.host_s["stage"] += time.perf_counter() - t0
         self._flush_pending()               # plugins of the previous group
-        # profiling: trace from the launch that covers step 10 until step
-        # 12 has run
+        # profiling (the chief's): trace from the launch that covers step
+        # 10 until step 12 has run
         if (self.train_cfg.profile_dir and self.profile is None
+                and self.is_chief
                 and self.global_step <= 10 < self.global_step + len(group)):
             from samplernn_pase_tpu_torch.utils.profiling import Trace
             self.profile = Trace(self.train_cfg.profile_dir).start()
@@ -516,17 +573,17 @@ class Trainer:
         xs, ys, rs = self._put(
             np.stack([c.inputs for c in chunks]),
             np.stack([c.targets for c in chunks]),
-            np.stack([c.resets for c in chunks]).astype(np.float32))
+            np.stack([c.resets for c in chunks]).astype(np.float32), dim=1)
         kwargs = {}
         if conds[0] is not None:
-            kwargs["cond"] = self._put(np.stack(conds))[0]
+            kwargs["cond"] = self._put(np.stack(conds), dim=1)[0]
         if (self.model_cfg.n_speakers
                 and chunks[0].speakers is not None):
             kwargs["speakers"] = self._put(
-                np.stack([c.speakers for c in chunks]))[0]
+                np.stack([c.speakers for c in chunks]), dim=1)[0]
         if any(self._needs_mask(c) for c in chunks):
             kwargs["valid"] = self._put(
-                np.stack([c.valid for c in chunks]))[0]
+                np.stack([c.valid for c in chunks]), dim=1)[0]
         return ("multi", (xs, ys, rs), kwargs)
 
     def _flush_pending(self):
@@ -608,10 +665,11 @@ class Trainer:
     def validate(self) -> float:
         """Valid-sample-weighted held-out NLL (bits/sample): each batch's
         masked mean is weighted by its count of real samples, so padded
-        tails neither score padding nor dilute the average."""
+        tails neither score padding nor dilute the average.  Under a mesh
+        every rank must call it (each batch's NLL is summed over the
+        ranks) and every rank gets the same number."""
         hiddens = samplernn.initial_state(
-            self._model_params(), self.model_cfg,
-            self.train_cfg.batch_size)
+            self._model_params(), self.model_cfg, self.local_batch)
         k_call = (max(1, self.train_cfg.steps_per_call)
                   if self._multi_eval_step is not None else 1)
         group, nll_parts, w_parts = [], [], []
@@ -632,7 +690,9 @@ class Trainer:
     # -- resume ----------------------------------------------------------
     def restore(self, manager, step: int | None = None) -> bool:
         """Restore the checkpoint at ``step`` (default the latest) onto
-        this trainer's device; False when there is none."""
+        this trainer's device; False when there is none.  Under a mesh
+        every rank reads the (unsharded) checkpoint and keeps its block of
+        the hiddens, so a checkpoint moves between meshes and sizes."""
         template = {"params": self._ckpt_params(),
                     "opt_state": self.opt_state,
                     "hiddens": list(self.hiddens)}
@@ -642,7 +702,8 @@ class Trainer:
         self._set_ckpt_params(restored["params"])
         self.opt_state = restored["opt_state"]
         if restored.get("hiddens") is not None:
-            self.hiddens = tuple(restored["hiddens"])
+            self.hiddens = pm.shard_state(self.data_mesh,
+                                          tuple(restored["hiddens"]))
         cursor = restored.get("cursor")
         if cursor is not None:
             self.epoch = int(cursor[0])
