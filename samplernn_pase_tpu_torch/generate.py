@@ -59,6 +59,7 @@ from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 from samplernn_pase_tpu_torch.ops.mulaw import (
     levels_to_float, linear_dequantize, quantize_zero)
 from samplernn_pase_tpu_torch.tree import tree_leaves, tree_map
+from samplernn_pase_tpu_torch.utils.profiling import note, spanned
 
 
 def next_pow2(n: int) -> int:
@@ -242,6 +243,7 @@ def _generate_plain(params, cfg, hist, states, n_steps, temperature, seed,
 
 # ------------------------------------------------------ kernel route --
 
+@spanned("generate.prepare_weights")
 def prepare_weights(params, cfg: SampleRNNConfig, device=None) -> dict:
     """The kernel route's form of ``params`` on ``device``: weight norm
     resolved, matrices cast to the compute dtype, the embedding folded
@@ -254,6 +256,7 @@ def prepare_weights(params, cfg: SampleRNNConfig, device=None) -> dict:
     return megagen.prepare(params["tiers"], params["mlp"], cfg.compute_dtype)
 
 
+@spanned("generate.project_cond")
 def project_cond(weights, cfg, cond, cond_pos0, n_samples: int):
     """The megakernel's conditioning inputs for a call of ``n_samples``
     samples (``generate.py:_megagen_chunk`` :490-510 of the reference):
@@ -314,6 +317,7 @@ def _route(use_kernels, device, cfg):
     return "kernels"
 
 
+@spanned("generate.levels")
 def generate_levels(params, cfg: SampleRNNConfig, n_seqs: int, length: int,
                     temperature: float | None = 1.0, seed: int = 0,
                     cond=None, initial_states=None, hist=None,
@@ -364,7 +368,9 @@ def generate_levels(params, cfg: SampleRNNConfig, n_seqs: int, length: int,
     cond_pos0 = _position(cond_pos0, n_seqs, dev, "cond_pos0")
     noise_pos0 = _position(noise_pos0, n_seqs, dev, "noise_pos0")
     lane_keys = _norm_lane_keys(lane_keys, n_seqs, temperature, dev)
-    if _route(use_kernels, dev, cfg) == "kernels":
+    route = _route(use_kernels, dev, cfg)
+    note(lanes=n_seqs, samples=length, route=route)
+    if route == "kernels":
         if kernel_weights is None:
             kernel_weights = prepare_weights(params, cfg, dev)
         levels, states, hist = _generate_kernels(

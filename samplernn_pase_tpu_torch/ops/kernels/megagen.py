@@ -42,6 +42,10 @@ writes its samples straight into it.  No chunking is needed: the buffer
 is 8 MB at B=128 and 16,000 samples, Philox noise is drawn inside K1, and
 a caller-supplied ``gumbel`` ``[n_bottom, f1, B, q]`` is the caller's
 memory.
+
+Each call of ``run`` is one span, ``megagen.run`` (attrs ``top_frames``,
+``lanes``; ``utils/profiling.py``), recorded while a profiler runs: the
+host's time launching a call's kernels, and none per launch.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from samplernn_pase_tpu_torch.ops.kernels.decode import (
     model_state, prepare_mlp, prepare_tier, tier_cell, tier_frame,
     tier_gates)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+from samplernn_pase_tpu_torch.utils.profiling import note, spanned
 
 
 def prepare(tiers, mlp, dtype, ops: Ops = KERNELS) -> dict:
@@ -62,6 +67,7 @@ def prepare(tiers, mlp, dtype, ops: Ops = KERNELS) -> dict:
             "mlp": prepare_mlp(mlp, dtype, f1, ops)}
 
 
+@spanned("megagen.run")
 def run(weights, window, states, temperature, n_top, q_levels,
         ops: Ops = KERNELS, seed: int = 0, pos0=0, gumbel=None,
         cond: tuple | None = None, lane_keys=None):
@@ -88,6 +94,7 @@ def run(weights, window, states, temperature, n_top, q_levels,
     lookback = spans[-1]
     f1 = frame_sizes[0]
     b = window.shape[0]
+    note(top_frames=n_top, lanes=b)
     if window.shape != (b, lookback):
         raise ValueError(f"window {tuple(window.shape)} != ({b}, {lookback})")
     if gumbel is not None and gumbel.shape[0] != n_top * lookback // f1:

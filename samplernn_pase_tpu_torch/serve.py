@@ -53,6 +53,17 @@ on the rank's block and gathers the whole [n_lanes, n] on every rank.
 The kernels fuse the whole MLP and its Gumbel-max, so a ``model`` axis
 > 1 does not split it here: the pool gathers MLP shards whole at
 construction and the ranks along ``model`` repeat the same lanes.
+
+Spans (``utils/profiling.py``, recorded while a profiler runs):
+``pool.start`` (attrs ``lane``, ``epoch``) with its parts
+``pool.start.upload`` (the key and rows to the card), ``pool.start.reset``
+(``_pool_join``) and ``pool.start.prime`` (a prompt's ``prime`` and lane
+scatter); ``pool.emit`` (``lanes_active``); ``serve.host_copy`` and
+``serve.host_wait``; and in ``run_jobs`` one ``jobs.chunk`` per pass of
+its loop (``chunk``, the pass's index), holding ``jobs.claim`` (the joins
+before the chunk) and ``jobs.drain`` (a chunk read, with its
+``jobs.on_done`` calls); the drains after the loop are ``jobs.drain``
+spans of their own.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from samplernn_pase_tpu_torch.ops.kernels.noise import lane_key
 from samplernn_pase_tpu_torch.ops.mulaw import quantize_zero
 from samplernn_pase_tpu_torch.parallel import mesh as pm
 from samplernn_pase_tpu_torch.tree import tree_map
+from samplernn_pase_tpu_torch.utils.profiling import note, span, spanned
 
 
 def _pool_join(params, cfg, states, hist, lane: int, lane_keys, noise_pos,
@@ -204,6 +216,7 @@ class StreamPool:
         return i if 0 <= i < self.n_local else None
 
     # -- lifecycle -------------------------------------------------------
+    @spanned("pool.start")
     def start(self, cond=None, speaker=None, seed_levels=None,
               seed_cond=None, lane: int | None = None,
               stream_key=None) -> int:
@@ -282,6 +295,7 @@ class StreamPool:
             # mesh
             words = (stream_key if stream_key is not None
                      else lane_key(self.seed, lane, self._epochs[lane]))
+        note(lane=lane, epoch=self._epochs[lane])
         self._epochs[lane] += 1
         if self.cfg.cond_dim:
             self._ensure_cap(cond.shape[0])
@@ -294,30 +308,35 @@ class StreamPool:
         if local is None:                   # another rank's lane
             self.active.add(lane)
             return lane
-        skey = (None if words is None
-                else device_put_batch(words.astype(np.int64), self.device))
-        cond_dev = (device_put_batch(gen.fit_cond_stream(cond, self._f_cap),
-                                     self.device)
-                    if self.cfg.cond_dim else None)
-        (self.states, self.hist, self._lane_keys, self._noise_pos,
-         self._cursors, self._cond_buf) = _pool_join(
-            self.params, self.cfg, self.states, self.hist, local,
-            self._lane_keys, self._noise_pos, skey, self._cursors,
-            self._cond_buf, cond_dev, spk)
+        with span("pool.start.upload"):
+            skey = cond_dev = None
+            if words is not None:
+                skey = device_put_batch(words.astype(np.int64), self.device)
+            if self.cfg.cond_dim:
+                cond_dev = device_put_batch(
+                    gen.fit_cond_stream(cond, self._f_cap), self.device)
+        with span("pool.start.reset"):
+            (self.states, self.hist, self._lane_keys, self._noise_pos,
+             self._cursors, self._cond_buf) = _pool_join(
+                self.params, self.cfg, self.states, self.hist, local,
+                self._lane_keys, self._noise_pos, skey, self._cursors,
+                self._cond_buf, cond_dev, spk)
         if seed is not None:
-            spk1 = (np.asarray([self._speakers[lane]])
-                    if self._speakers is not None else None)
-            try:
-                s1, h1 = gen.prime(self.params, self.cfg, seed, cond=sc,
-                                   speakers=spk1, device=self.device)
-            except Exception:
-                # the lane's state was reset above: returning it is safe
-                self._free.append(lane)
-                raise
-            self.states = _scatter_lane(self.states, s1, local)
-            hist = self.hist.clone()
-            hist[local] = h1[0]
-            self.hist = hist
+            with span("pool.start.prime"):
+                spk1 = (np.asarray([self._speakers[lane]])
+                        if self._speakers is not None else None)
+                try:
+                    s1, h1 = gen.prime(self.params, self.cfg, seed, cond=sc,
+                                       speakers=spk1, device=self.device)
+                except Exception:
+                    # the lane's state was reset above: returning it is
+                    # safe
+                    self._free.append(lane)
+                    raise
+                self.states = _scatter_lane(self.states, s1, local)
+                hist = self.hist.clone()
+                hist[local] = h1[0]
+                self.hist = hist
         self.active.add(lane)
         return lane
 
@@ -372,10 +391,12 @@ class StreamPool:
         self._free.append(lane)
 
     # -- decode ----------------------------------------------------------
+    @spanned("pool.emit")
     def emit(self, n_samples: int) -> torch.Tensor:
         """Advance every lane ``n_samples`` and return [n_lanes, n_samples]
         int32 levels on the device (under a mesh: this rank's lanes
         generated, every rank's gathered)."""
+        note(lanes_active=len(self.active))
         if n_samples % self.cfg.lookback:
             raise ValueError(f"n_samples must be a multiple of lookback "
                              f"({self.cfg.lookback})")
@@ -397,6 +418,7 @@ class StreamPool:
         return gen.decode_waveform(self.emit(n_samples), self.cfg)
 
 
+@spanned("serve.host_copy")
 def host_copy(levels: torch.Tensor):
     """Start copying ``levels`` to the host without waiting: (host tensor,
     event).  On CUDA the host tensor is pinned and the copy is queued on
@@ -412,6 +434,7 @@ def host_copy(levels: torch.Tensor):
     return host, done
 
 
+@spanned("serve.host_wait")
 def host_wait(copy) -> np.ndarray:
     """The numpy array of a ``host_copy`` once its copy has landed."""
     host, done = copy
@@ -517,6 +540,7 @@ def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
     depth = 1 if enqueue_ahead else 0
     n_chunks = 0
 
+    @spanned("jobs.drain")
     def drain(entry):
         copy, snapshot = entry
         arr = host_wait(copy)
@@ -530,33 +554,37 @@ def run_jobs(params, cfg: SampleRNNConfig, jobs, *, n_lanes: int,
                 if retain_results:
                     results[jid] = out
                 if on_done is not None:
-                    on_done(jid, out)
+                    with span("jobs.on_done"):
+                        on_done(jid, out)
 
     t0 = time.perf_counter()
     while queue or active:
-        while queue and len(pool.active) < pool.n:
-            job = queue.pop()
-            lane = pool.start(
-                cond=job.get("cond"), speaker=job.get("speaker"),
-                seed_levels=job.get("seed_levels"),
-                seed_cond=job.get("seed_cond"),
-                stream_key=job.get("stream_key"))
-            active[lane] = [job["id"], job["n_samples"]]
-            pieces[job["id"]], got[job["id"]] = [], 0
-        snapshot = {lane: jid for lane, (jid, _) in active.items()}
-        levels = pool.emit(chunk)
-        n_chunks += 1
-        # lanes whose jobs end with this chunk free their slot now (stop()
-        # is bookkeeping; the queued chunk keeps the state it was launched
-        # with), so the next joins need not wait for it to be read
-        for lane in list(active):
-            active[lane][1] -= chunk
-            if active[lane][1] <= 0:
-                pool.stop(lane)
-                del active[lane]
-        inflight.append((host_copy(levels), snapshot))
-        while len(inflight) > depth:
-            drain(inflight.pop(0))
+        with span("jobs.chunk", chunk=n_chunks):
+            with span("jobs.claim"):
+                while queue and len(pool.active) < pool.n:
+                    job = queue.pop()
+                    lane = pool.start(
+                        cond=job.get("cond"), speaker=job.get("speaker"),
+                        seed_levels=job.get("seed_levels"),
+                        seed_cond=job.get("seed_cond"),
+                        stream_key=job.get("stream_key"))
+                    active[lane] = [job["id"], job["n_samples"]]
+                    pieces[job["id"]], got[job["id"]] = [], 0
+            snapshot = {lane: jid for lane, (jid, _) in active.items()}
+            levels = pool.emit(chunk)
+            n_chunks += 1
+            # lanes whose jobs end with this chunk free their slot now
+            # (stop() is bookkeeping; the queued chunk keeps the state it
+            # was launched with), so the next joins need not wait for it
+            # to be read
+            for lane in list(active):
+                active[lane][1] -= chunk
+                if active[lane][1] <= 0:
+                    pool.stop(lane)
+                    del active[lane]
+            inflight.append((host_copy(levels), snapshot))
+            while len(inflight) > depth:
+                drain(inflight.pop(0))
     for entry in inflight:
         drain(entry)
     dispatched = n_chunks * chunk * n_lanes

@@ -15,7 +15,6 @@ back as new trees.
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 from typing import Sequence
 
@@ -31,6 +30,7 @@ from samplernn_pase_tpu_torch.train.optim import (
     Optimizer, apply_updates, make_optimizer)
 from samplernn_pase_tpu_torch.tree import (
     tree_leaves, tree_map, tree_unflatten)
+from samplernn_pase_tpu_torch.utils.profiling import span, timed
 
 
 def _reset(params, cfg, hiddens, resets):
@@ -52,13 +52,16 @@ def _grads(nll, p, mesh):
 
 def _train_one(cfg, tx, params, opt_state, hiddens, inputs, targets, resets,
                cond, speakers, valid, mesh=None):
-    hiddens = _reset(params, cfg, hiddens, resets)
-    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    nll, new_h = samplernn.loss_fn(p, cfg, inputs, targets, hiddens, cond,
-                                   speakers, valid, mesh)
-    grads = _grads(nll, p, mesh)
-    updates, opt_state = tx.update(grads, opt_state, params, mesh=mesh)
-    params = apply_updates(params, updates)
+    with span("train.forward"):
+        hiddens = _reset(params, cfg, hiddens, resets)
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        nll, new_h = samplernn.loss_fn(p, cfg, inputs, targets, hiddens,
+                                       cond, speakers, valid, mesh)
+    with span("train.backward"):
+        grads = _grads(nll, p, mesh)
+    with span("train.optim"):
+        updates, opt_state = tx.update(grads, opt_state, params, mesh=mesh)
+        params = apply_updates(params, updates)
     return (params, opt_state, tuple(h.detach() for h in new_h),
             samplernn.global_nll(nll, mesh))
 
@@ -315,10 +318,16 @@ class Trainer:
     default ``train_cfg.seed``).  ``host_s`` accumulates the host's wall
     time by part of the loop: reading batches ("data"), staging them on
     the device ("stage"), launching steps ("dispatch"), waiting for a
-    group's NLLs ("sync") and running plugin hooks ("plugins").  With
-    ``train_cfg.profile_dir``, steps 10-12 are traced with torch.profiler
-    into that directory, and ``profile`` holds the trace (its profiler and
-    the traced span's wall time).
+    group's NLLs ("sync") and running plugin hooks ("plugins"), each from
+    the clock reads of its span (``trainer.data``, ``trainer.stage``,
+    ``trainer.dispatch``, ``trainer.sync``, ``trainer.plugins``;
+    ``utils/profiling.timed``).  With ``train_cfg.profile_dir``, steps
+    10-12 are traced with torch.profiler into that directory, and
+    ``profile`` holds the trace (its profiler and the traced span's wall
+    time); the trace carries those spans, each step's ``train.forward``,
+    ``train.backward`` and ``train.optim``, and each epoch's
+    ``trainer.batcher`` (its batcher built) and ``trainer.epoch_end`` (its
+    hooks) beside the kernels.
 
     ``mesh`` (``parallel.mesh``; one process per rank): the batch and the
     hiddens are split over its ``data`` axis, parameters and optimizer
@@ -434,13 +443,11 @@ class Trainer:
         """Iterate ``items``, adding the time spent in them to "data"."""
         it = iter(items)
         while True:
-            t0 = time.perf_counter()
             try:
-                item = next(it)
+                with timed("trainer.data", self.host_s, "data"):
+                    item = next(it)
             except StopIteration:
                 return
-            finally:
-                self.host_s["data"] += time.perf_counter() - t0
             yield item
 
     def _put(self, *arrays, dim: int = 0):
@@ -488,7 +495,9 @@ class Trainer:
             self.epoch = epoch
             group: list = []
             try:
-                for i, item in enumerate(self._timed(self._batcher("train"))):
+                with span("trainer.batcher"):
+                    batches = self._batcher("train")
+                for i, item in enumerate(self._timed(batches)):
                     if i <= skip_until:
                         # exact mid-epoch resume: the checkpoint carries
                         # the data cursor (the last trained index) and the
@@ -518,8 +527,9 @@ class Trainer:
             # epoch trained
             self._flush_pending()
             skip_until = -1
-            for p in self.plugins:
-                p.on_epoch_end(self, epoch)
+            with span("trainer.epoch_end"):
+                for p in self.plugins:
+                    p.on_epoch_end(self, epoch)
         self._flush_pending()
         for p in self.plugins:
             p.on_train_end(self)
@@ -536,9 +546,8 @@ class Trainer:
         The data cursor (batch_idx) is pinned to the group's last index at
         launch, so a checkpoint taken inside the group never makes chunks
         already folded into the saved params train again."""
-        t0 = time.perf_counter()
-        staged = self._stage_group(group)   # overlaps the previous group
-        self.host_s["stage"] += time.perf_counter() - t0
+        with timed("trainer.stage", self.host_s, "stage"):
+            staged = self._stage_group(group)   # overlaps the previous group
         self._flush_pending()               # plugins of the previous group
         # profiling (the chief's): trace from the launch that covers step
         # 10 until step 12 has run
@@ -548,15 +557,14 @@ class Trainer:
             from samplernn_pase_tpu_torch.utils.profiling import Trace
             self.profile = Trace(self.train_cfg.profile_dir).start()
             self._tracing = True
-        t0 = time.perf_counter()
-        self.batch_idx = group[-1][0]
-        kind, args, kwargs = staged
-        if kind == "single":
-            nlls = self._step_single(args, kwargs)
-        else:
-            nlls = self._step_multi(args, kwargs)
-        self.host_s["dispatch"] += time.perf_counter() - t0
-        self._pending = (nlls, len(group), t0, samples_per_chunk)
+        with timed("trainer.dispatch", self.host_s, "dispatch") as launch:
+            self.batch_idx = group[-1][0]
+            kind, args, kwargs = staged
+            if kind == "single":
+                nlls = self._step_single(args, kwargs)
+            else:
+                nlls = self._step_multi(args, kwargs)
+        self._pending = (nlls, len(group), launch.t0, samples_per_chunk)
 
     def _stage_group(self, group):
         """Assemble one group's batches on the host and copy them to the
@@ -594,27 +602,25 @@ class Trainer:
             return
         nlls_obj, n_group, t0, samples_per_chunk = self._pending
         self._pending = None
-        t1 = time.perf_counter()
-        nlls = [float(v) for v in nlls_obj.reshape(-1).tolist()]
-        t2 = time.perf_counter()
-        self.host_s["sync"] += t2 - t1
-        dt = (t2 - t0) / n_group
-        if self._tracing and self.global_step + n_group > 12:
-            self.profile.stop()
-            self._tracing = False
-        self.resume_next_step = self.global_step + len(nlls)
-        for nll in nlls:
-            metrics = {
-                **self.metric_tags,
-                "nll_bits": nll,
-                "samples_per_sec": samples_per_chunk / dt,
-                "frames_per_sec": (samples_per_chunk
-                                   / self.model_cfg.frame_sizes[0] / dt),
-            }
-            for p in self.plugins:
-                p.on_step(self, self.global_step, metrics)
-            self.global_step += 1
-        self.host_s["plugins"] += time.perf_counter() - t2
+        with timed("trainer.sync", self.host_s, "sync") as sync:
+            nlls = [float(v) for v in nlls_obj.reshape(-1).tolist()]
+        dt = (sync.t1 - t0) / 1e9 / n_group
+        with timed("trainer.plugins", self.host_s, "plugins"):
+            if self._tracing and self.global_step + n_group > 12:
+                self.profile.stop()
+                self._tracing = False
+            self.resume_next_step = self.global_step + len(nlls)
+            for nll in nlls:
+                metrics = {
+                    **self.metric_tags,
+                    "nll_bits": nll,
+                    "samples_per_sec": samples_per_chunk / dt,
+                    "frames_per_sec": (samples_per_chunk
+                                       / self.model_cfg.frame_sizes[0] / dt),
+                }
+                for p in self.plugins:
+                    p.on_step(self, self.global_step, metrics)
+                self.global_step += 1
 
     def _step_single(self, args, kwargs):
         """One train step; returns its NLL as a device tensor (read by

@@ -397,14 +397,8 @@ def test_device_put_batch_and_zeros(monkeypatch):
     assert tinit.zeros([4], torch.int32).dtype == torch.int32
 
 
-def test_profiling_trace_and_timer(tmp_path):
+def test_profiling_trace(tmp_path):
     with profiling.trace(tmp_path / "prof") as t:
         torch.ones(64).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert t.wall_s > 0
-    timer = profiling.StepTimer(window=2)
-    assert timer.steps_per_sec() == 0.0
-    for _ in range(4):
-        timer.tick(torch.ones(1))
-    assert len(timer._t) == 3 and timer.throughput(10) > 0
-    assert profiling.StepTimer.realtime_factor(32_000) == 2.0
