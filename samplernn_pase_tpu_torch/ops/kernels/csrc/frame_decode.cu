@@ -29,7 +29,9 @@
 // key lane_keys[b] and counter (level / 4, position low, position high,
 // 0), so its noise depends on its key and positions only, not on its
 // index in the batch.  Step i of lane b is at position
-// pos0 + i (+ lane_pos[b] when given) in modes 2 and 3.
+// pos0 + i (+ lane_pos[b] when given) in modes 2 and 3.  In mode 2 the
+// seed is read from seed_ptr (device memory) when that is not null, so a
+// captured CUDA graph can take a new seed at each replay.
 //
 // Bound on the H100: per step the batch needs the rows of W' it gathers,
 // W_h and W_out (2.6 MB in bf16 at dim 1024) and 0.34 GFLOP, ~0.4 us at
@@ -246,12 +248,14 @@ frame_decode_kernel(
     const float* __restrict__ b_in, const WT* __restrict__ w_h,
     const float* __restrict__ b_h, const WT* __restrict__ w_out,
     const float* __restrict__ b_out, const float* __restrict__ noise,
-    int noise_mode, float temperature, uint64_t seed, int64_t pos0,
+    int noise_mode, float temperature, uint64_t seed,
+    const uint64_t* __restrict__ seed_ptr, int64_t pos0,
     const uint32_t* __restrict__ lane_keys,
     const int64_t* __restrict__ lane_pos, int32_t* __restrict__ out,
     int64_t ldo, int b, int f1, int hdim, int q,
     unsigned long long* __restrict__ tr) {
   trace_block(tr, 0);
+  if (seed_ptr) seed = *seed_ptr;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int V = Vec<WT>::N;
@@ -403,9 +407,10 @@ int launch(const int32_t* window, int64_t ldw, const float* cond,
            int64_t ldc, const float* bup, const void* w_fused,
            const float* b_in, const void* w_h, const float* b_h,
            const void* w_out, const float* b_out, const float* noise,
-           int noise_mode, float temperature, uint64_t seed, int64_t pos0,
-           const uint32_t* lane_keys, const int64_t* lane_pos, int32_t* out,
-           int64_t ldo, int b, int f1, int hdim, int q, cudaStream_t stream) {
+           int noise_mode, float temperature, uint64_t seed,
+           const uint64_t* seed_ptr, int64_t pos0, const uint32_t* lane_keys,
+           const int64_t* lane_pos, int32_t* out, int64_t ldo, int b, int f1,
+           int hdim, int q, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(hdim, q, f1, Vec<WT>::N);
   cudaError_t err = cudaFuncSetAttribute(
       frame_decode_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -415,8 +420,8 @@ int launch(const int32_t* window, int64_t ldw, const float* cond,
   frame_decode_kernel<WT><<<blocks, THREADS, smem, stream>>>(
       window, ldw, cond, ldc, bup, static_cast<const WT*>(w_fused), b_in,
       static_cast<const WT*>(w_h), b_h, static_cast<const WT*>(w_out), b_out,
-      noise, noise_mode, temperature, seed, pos0, lane_keys, lane_pos, out,
-      ldo, b, f1, hdim, q, g_trace);
+      noise, noise_mode, temperature, seed, seed_ptr, pos0, lane_keys,
+      lane_pos, out, ldo, b, f1, hdim, q, g_trace);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -498,6 +503,7 @@ struct Params {
   int noise_mode;
   float temperature;
   uint64_t seed;
+  const uint64_t* seed_ptr;   // mode 2's seed in device memory, or null
   int64_t pos0;
   const uint32_t* lane_keys;
   const int64_t* lane_pos;
@@ -687,6 +693,7 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
     // gbuf[step % 2] ----
     if (leader && p.noise_mode) {
       const int lane = tid % 32;
+      const uint64_t seed = p.seed_ptr ? *p.seed_ptr : p.seed;
       int64_t g = 0;
       for (int tile = cid; tile < p.tiles; tile += nclusters)
         for (int i = 0; i < F1; ++i, ++g) {
@@ -706,8 +713,8 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
               const uint4 w = srnn::philox_words(
                   own ? make_uint2(p.lane_keys[2 * ln],
                                    p.lane_keys[2 * ln + 1])
-                      : make_uint2(static_cast<uint32_t>(p.seed),
-                                   static_cast<uint32_t>(p.seed >> 32)),
+                      : make_uint2(static_cast<uint32_t>(seed),
+                                   static_cast<uint32_t>(seed >> 32)),
                   own ? 0u : static_cast<uint32_t>(ln),
                   p.pos0 + i + (p.lane_pos ? p.lane_pos[ln] : 0), lev >> 2);
               v = make_float4(srnn::bits_gumbel(w.x), srnn::bits_gumbel(w.y),
@@ -1211,10 +1218,10 @@ int decode(const int32_t* window, int64_t ldw, const float* cond,
            int64_t ldc, const float* bup, const void* w_fused,
            const float* b_in, const void* w_h, const float* b_h,
            const void* w_out, const float* b_out, const float* noise,
-           int noise_mode, float temperature, uint64_t seed, int64_t pos0,
-           const uint32_t* lane_keys, const int64_t* lane_pos, int32_t* out,
-           int64_t ldo, int b, int f1, int hdim, int q, int w_bf16,
-           const int* plan, cudaStream_t s) {
+           int noise_mode, float temperature, uint64_t seed,
+           const uint64_t* seed_ptr, int64_t pos0, const uint32_t* lane_keys,
+           const int64_t* lane_pos, int32_t* out, int64_t ldo, int b, int f1,
+           int hdim, int q, int w_bf16, const int* plan, cudaStream_t s) {
   if (plan[0] == 1) {
     // the built shape; out_split <= 4: the layer-3 partials fit in h1's
     // space and each warpgroup has a box of its K-slice
@@ -1227,9 +1234,9 @@ int decode(const int32_t* window, int64_t ldw, const float* cond,
     const tcd::Params p = {window, ldw, cond, ldc, bup,
                            static_cast<const __nv_bfloat16*>(w_fused), b_in,
                            b_h, b_out, noise, noise_mode, temperature, seed,
-                           pos0, lane_keys, lane_pos, out, ldo, b, f1, hdim,
-                           q, plan[3], plan[4], (b + tcd::LT - 1) / tcd::LT,
-                           g_trace};
+                           seed_ptr, pos0, lane_keys, lane_pos, out, ldo, b,
+                           f1, hdim, q, plan[3], plan[4],
+                           (b + tcd::LT - 1) / tcd::LT, g_trace};
     return g_trace ? tcd::launch<true>(p, w_h, w_out, s)
                    : tcd::launch<false>(p, w_h, w_out, s);
   }
@@ -1238,11 +1245,12 @@ int decode(const int32_t* window, int64_t ldw, const float* cond,
   if (w_bf16)
     return launch<__nv_bfloat16>(window, ldw, cond, ldc, bup, w_fused, b_in,
                                  w_h, b_h, w_out, b_out, noise, noise_mode,
-                                 temperature, seed, pos0, lane_keys, lane_pos,
-                                 out, ldo, b, f1, hdim, q, s);
+                                 temperature, seed, seed_ptr, pos0, lane_keys,
+                                 lane_pos, out, ldo, b, f1, hdim, q, s);
   return launch<float>(window, ldw, cond, ldc, bup, w_fused, b_in, w_h, b_h,
                        w_out, b_out, noise, noise_mode, temperature, seed,
-                       pos0, lane_keys, lane_pos, out, ldo, b, f1, hdim, q, s);
+                       seed_ptr, pos0, lane_keys, lane_pos, out, ldo, b, f1,
+                       hdim, q, s);
 }
 
 }  // namespace
@@ -1258,23 +1266,24 @@ extern "C" int srnn_frame_decode(
     void* stream) {
   const int plan[5] = {0, CL, LT, 1, 0};
   return decode(window, ldw, cond, ldc, bup, w_fused, b_in, w_h, b_h, w_out,
-                b_out, noise, noise_mode, temperature, seed, pos0, lane_keys,
-                lane_pos, out, ldo, b, f1, hdim, q, w_bf16, plan,
+                b_out, noise, noise_mode, temperature, seed, nullptr, pos0,
+                lane_keys, lane_pos, out, ldo, b, f1, hdim, q, w_bf16, plan,
                 static_cast<cudaStream_t>(stream));
 }
 
-// The same under a plan (route, cluster, lanes, out_split, stages).
+// The same under a plan (route, cluster, lanes, out_split, stages), with
+// mode 2's seed read from seed_ptr where that is not null.
 extern "C" int srnn_frame_decode_planned(
     const int32_t* window, int64_t ldw, const float* cond, int64_t ldc,
     const float* bup, const void* w_fused, const float* b_in,
     const void* w_h, const float* b_h, const void* w_out, const float* b_out,
     const float* noise, int noise_mode, float temperature, uint64_t seed,
-    int64_t pos0, const uint32_t* lane_keys, const int64_t* lane_pos,
-    int32_t* out, int64_t ldo, int b, int f1, int hdim, int q, int w_bf16,
-    const int* plan, void* stream) {
+    const uint64_t* seed_ptr, int64_t pos0, const uint32_t* lane_keys,
+    const int64_t* lane_pos, int32_t* out, int64_t ldo, int b, int f1,
+    int hdim, int q, int w_bf16, const int* plan, void* stream) {
   return decode(window, ldw, cond, ldc, bup, w_fused, b_in, w_h, b_h, w_out,
-                b_out, noise, noise_mode, temperature, seed, pos0, lane_keys,
-                lane_pos, out, ldo, b, f1, hdim, q, w_bf16, plan,
+                b_out, noise, noise_mode, temperature, seed, seed_ptr, pos0,
+                lane_keys, lane_pos, out, ldo, b, f1, hdim, q, w_bf16, plan,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -77,8 +77,8 @@ _SIGNATURES = {
                        [_P, _I64, _P, _I64, _P, _P, _I, _I, _P]),
     "frame_decode": ("srnn_frame_decode_planned",
                      [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _F, ctypes.c_uint64, _I64, _P, _P, _P, _I64, _I, _I, _I,
-                      _I, _I, _P, _P]),
+                      _F, ctypes.c_uint64, _P, _I64, _P, _P, _P, _I64, _I, _I,
+                      _I, _I, _I, _P, _P]),
 }
 
 
@@ -497,6 +497,13 @@ def frame_columns(plan: FramePlan, hdim: int, q: int) -> list:
     return out
 
 
+def noise_mode(temperature, noise, lane_keys) -> int:
+    """K1's noise mode: 0 greedy, 1 the supplied ``noise``, 3 per-lane
+    keys, 2 the shared seed."""
+    return (0 if not temperature else 1 if noise is not None
+            else 3 if lane_keys is not None else 2)
+
+
 def frame_noise(temperature, noise, seed, pos0, lane_keys, lane_pos, b,
                 f1, q, device):
     """The [f1, B, q] noise block K1 reads, drawn in PyTorch: the supplied
@@ -509,6 +516,8 @@ def frame_noise(temperature, noise, seed, pos0, lane_keys, lane_pos, b,
     pos = pos0 if lane_pos is None else lane_pos.to(torch.int64) + pos0
     if lane_keys is not None:
         return lane_gumbel_block(lane_keys, pos, f1, q, device)
+    if isinstance(seed, torch.Tensor):
+        seed = int(seed.item()) & 0xFFFFFFFFFFFFFFFF
     return gumbel_block(seed, b, pos, f1, q, device)
 
 
@@ -573,15 +582,17 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
     added to row i at use, or None; mw: ``prepare_mlp`` weights;
     temperature 0 = greedy (noise is then never read); noise [f1, B, q]
     float32 Gumbel block, or None to draw Philox noise in the kernel:
-    keyed by ``seed`` and the lane index, or with ``lane_keys`` [B, 2]
-    (see ``noise.as_lane_keys``) by each lane's own key; step i of lane b
-    is at position ``pos0 + i``, plus ``lane_pos[b]`` when a [B] tensor
-    of per-lane offsets is given.  ``out``: an int32 [B, f1] view (rows
+    keyed by ``seed`` (an int, or an int64 [1] tensor holding its 64 bits
+    on the device, read by the kernel at run time, so that a captured
+    graph takes a new seed) and the lane index, or with ``lane_keys``
+    [B, 2] (see ``noise.as_lane_keys``) by each lane's own key; step i of
+    lane b is at position ``pos0 + i``, plus ``lane_pos[b]`` when a [B]
+    tensor of per-lane offsets is given.  ``out``: an int32 [B, f1] view (rows
     may be strided) to write into, else allocated.  ``plan``: the kernel's
     plan, ``frame_plan(H, q, f1, dtype)`` when None (another ring depth
     is for timing sweeps: a lane's samples stay bit-equal across batch
     sizes under any one plan)."""
-    if _on_cpu(window, cond, mw["w_fused"], lane_keys, lane_pos):
+    if _on_cpu(window, cond, mw["w_fused"], lane_keys, lane_pos, seed):
         return frame_decode_plain(window, cond, bup, mw, temperature, noise,
                                   seed, pos0, out, lane_keys, lane_pos)
     b, f1 = window.shape
@@ -606,8 +617,7 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
     if plan.route == "wgmma" and (cond.stride(0) % 4
                                   or cond.data_ptr() % 16):
         cond = cond.contiguous()     # its rows are read 16 bytes at a time
-    mode = (0 if not temperature else 1 if noise is not None
-            else 3 if lane_keys is not None else 2)
+    mode = noise_mode(temperature, noise, lane_keys)
     if mode == 1:
         _check(noise, "noise", (torch.float32,), (f1, b, q))
     keys = None
@@ -619,6 +629,10 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
         _check(keys, "lane_keys", (torch.int32,), (b, 2))
     if lane_pos is not None and mode >= 2:
         _check(lane_pos, "lane_pos", (torch.int64,), (b,))
+    seed_dev = None
+    if isinstance(seed, torch.Tensor):
+        _check(seed, "seed", (torch.int64,), (1,))
+        seed_dev, seed = seed, 0
     if out is None:
         out = torch.empty((b, f1), dtype=torch.int32, device=window.device)
     _check(out, "out", (torch.int32,), (b, f1), rows_strided=True)
@@ -629,7 +643,8 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
             mw["w_out"].data_ptr(), mw["b_out"].data_ptr(),
             _ptr(noise) if mode == 1 else None, mode,
             float(temperature or 0.0), int(seed) & 0xFFFFFFFFFFFFFFFF,
-            int(pos0), _ptr(keys), _ptr(lane_pos) if mode >= 2 else None,
+            _ptr(seed_dev) if mode == 2 else None, int(pos0), _ptr(keys),
+            _ptr(lane_pos) if mode >= 2 else None,
             out.data_ptr(), out.stride(0), b, f1, hdim, q,
             int(wt == torch.bfloat16), ctypes.addressof(_plan_words(plan)),
             _stream(window), mode="lane_keys" if mode == 3 else None)

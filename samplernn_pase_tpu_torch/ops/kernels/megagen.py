@@ -43,21 +43,46 @@ is 8 MB at B=128 and 16,000 samples, Philox noise is drawn inside K1, and
 a caller-supplied ``gumbel`` ``[n_bottom, f1, B, q]`` is the caller's
 memory.
 
+Launched one by one from Python, a stacked flagship top frame's 44
+launches cost an H100 host 1.7-1.9 ms, more than the card's 1.28 ms for
+them, so the card waited on the host.  So ``run`` records the
+launches of ``BLOCK`` top frames once into a CUDA graph and replays it
+(``graph_blocks`` says when): every input that differs between replays
+(the window, the states, positions, seed, lane keys and conditioning)
+sits in the graph's static buffers, filled with one copy each before a
+call's first replay, and the graph's last nodes write the next window,
+the final states and the next base position back into them, so blocks
+chain on the card.  The launches stay K1, K2, K3 and K6, with the same
+arguments as on the loop, so a graphed call's levels and states are
+bit-equal to the loop's.  The graphs live in a small cache keyed by the
+call's structure (``graph_key``); one whose weight tensors have died never
+replays.
+
 Each call of ``run`` is one span, ``megagen.run`` (attrs ``top_frames``,
-``lanes``; ``utils/profiling.py``), recorded while a profiler runs: the
-host's time launching a call's kernels, and none per launch.
+``lanes``, ``graphed``: the top frames replayed; ``utils/profiling.py``),
+recorded while a profiler runs: the host's time launching a call's
+kernels, and none per launch.
 """
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
+
 import torch
 
 from samplernn_pase_tpu_torch.ops.kernels.decode import (
-    KERNELS, PLAIN, CondRows, Ops, decode_state, kernel_lane_keys,
-    model_state, prepare_mlp, prepare_tier, tier_cell, tier_frame,
-    tier_gates)
+    KERNELS, LAUNCHES, PLAIN, CondRows, Ops, decode_state, kernel_lane_keys,
+    model_state, noise_mode, prepare_mlp, prepare_tier, tier_cell,
+    tier_frame, tier_gates)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+from samplernn_pase_tpu_torch.tree import tree_leaves
 from samplernn_pase_tpu_torch.utils.profiling import note, spanned
+
+BLOCK = 16          # top frames a graph replays: 1,024 samples at lookback
+                    # 64, the pool's chunk
+GRAPHS_KEPT = 8     # captured graphs kept, the least recently used dropped
+_GRAPHS: OrderedDict = OrderedDict()       # graph_key -> _Graph
 
 
 def prepare(tiers, mlp, dtype, ops: Ops = KERNELS) -> dict:
@@ -65,6 +90,173 @@ def prepare(tiers, mlp, dtype, ops: Ops = KERNELS) -> dict:
     f1 = tiers[0]["b_up"].shape[0]
     return {"tiers": [prepare_tier(t, dtype) for t in tiers],
             "mlp": prepare_mlp(mlp, dtype, f1, ops)}
+
+
+def graph_blocks(n_top: int, device, ops: Ops, gumbel, cond) -> int:
+    """The blocks of ``BLOCK`` top frames of a call that ``run`` replays as
+    a CUDA graph; the rest of its top frames go through the launch loop.
+    None for the calls ``run``'s docstring lists, and for calls shorter
+    than one block."""
+    if (ops is not KERNELS or gumbel is not None or device.type != "cuda"
+            or (cond is not None and n_top > BLOCK)):
+        return 0
+    return n_top // BLOCK
+
+
+def graph_key(weights, window, temperature, q_levels: int, mode: int,
+              cond) -> tuple:
+    """The structure a graph records: device and lanes, ``BLOCK``, every
+    weight's pointer, shape, strides and dtype (so tier and layer shapes
+    too), ``q_levels``, temperature, noise mode and, conditioned, the
+    rate and each tier's row count."""
+    leaves = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                   for t in tree_leaves(weights))
+    rows = None if cond is None else (
+        cond[2], tuple(tuple(e.shape) for e in cond[0]))
+    return (window.device, tuple(window.shape), BLOCK, leaves, q_levels,
+            float(temperature or 0.0), mode, rows)
+
+
+def _frames(tiers, mw, buf, h, top, temperature, q_levels, ops, seed,
+            pos_off, lane_pos, tier_cond, lane_keys, gumbel=None):
+    """Launch the kernels of top frames ``top`` (a range): levels into
+    ``buf`` [B, lookback + ...], whose first ``lookback`` columns hold the
+    window before frame 0, and the per-tier decode states of the list
+    ``h`` replaced as they advance."""
+    frame_sizes = [t["b_up"].shape[0] for t in tiers]
+    spans = []
+    acc = 1
+    for f in frame_sizes:
+        acc *= f
+        spans.append(acc)
+    lookback = spans[-1]
+    f1 = frame_sizes[0]
+
+    def decode(k, upper, p):
+        """Tier k's frame starting at generated sample p."""
+        start = lookback + p
+        frame = buf[:, start - spans[k]:start]
+        if k == 0:
+            noise = None if gumbel is None else gumbel[p // f1]
+            _, h[0] = tier_frame(tiers[0], mw, frame, upper, h[0],
+                                 temperature, q_levels, ops, noise, seed,
+                                 pos_off + p, buf[:, start:start + f1],
+                                 tier_cond[0], p, lane_keys, lane_pos)
+            return
+        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
+                         tier_cond[k], p)
+        last = h[k][-1][0]          # the last layer's h
+        cond = ops.gemm(last, tiers[k]["w_up"], tiers[k]["b_up_flat"])
+        hdim = last.shape[1]
+        for j in range(frame_sizes[k]):
+            decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
+                   p + j * spans[k - 1])
+
+    for t in top:
+        decode(len(tiers) - 1, None, t * lookback)
+
+
+class _Graph:
+    """A captured block of ``BLOCK`` top frames and its static buffers:
+    ``buf`` (the window, then the block's levels), the model-layout
+    ``states``, ``pos`` (each lane's noise position of the block's first
+    sample), ``seed``, ``keys`` (mode 3) and ``cond`` (the rows and
+    phase, conditioned)."""
+
+    def __init__(self, weights, window, states, cond, mode):
+        dev = window.device
+        b, lookback = window.shape
+        self.refs = [weakref.ref(t) for t in tree_leaves(weights)]
+        self.buf = torch.empty((b, (1 + BLOCK) * lookback),
+                               dtype=torch.int32, device=dev)
+        self.states = [torch.empty(s.shape, dtype=torch.float32, device=dev)
+                       for s in states]
+        self.pos = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.seed = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.keys = (torch.zeros((b, 2), dtype=torch.int32, device=dev)
+                     if mode == 3 else None)
+        self.cond = None if cond is None else CondRows(
+            tuple(torch.empty(e.shape, dtype=torch.float32, device=dev)
+                  for e in cond[0]),
+            torch.empty(b, dtype=torch.int32, device=dev), cond[2])
+        self.graph = None
+        self.launches = {}
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.refs)
+
+    def block(self, tiers, mw, temperature, q_levels):
+        """What the graph records: one block's launches on the static
+        buffers, then the copies that chain the next block (the window
+        from the block's last ``lookback`` levels, the final states, the
+        base position advanced by the block)."""
+        lookback = self.buf.shape[1] // (1 + BLOCK)
+        h = [decode_state(s, t["layers"]) for s, t in zip(self.states, tiers)]
+        tier_cond = ([None] * len(tiers) if self.cond is None else
+                     [CondRows(e, self.cond.phase, self.cond.rate)
+                      for e in self.cond.ext])
+        _frames(tiers, mw, self.buf, h, range(BLOCK), temperature, q_levels,
+                KERNELS, self.seed, 0, self.pos, tier_cond, self.keys)
+        self.buf[:, :lookback].copy_(self.buf[:, -lookback:])
+        for s, x in zip(self.states, h):
+            s.copy_(model_state(x))
+        self.pos.add_(BLOCK * lookback)
+
+    def capture(self, tiers, mw, temperature, q_levels):
+        """Record ``block`` on the stream the wrappers launch on (the
+        capture's); ``launches`` keeps what the capture counted in
+        ``LAUNCHES`` (a replay adds it), which is left as it was."""
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.block(tiers, mw, temperature, q_levels)
+        self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        LAUNCHES.update(before)
+
+    def load(self, window, states, pos0, seed, lane_keys, cond):
+        """One copy into each static buffer: the window before the first
+        replayed frame, the states, positions (``pos0``: an int or a [B]
+        int64 tensor), the seed's 64 bits, the keys and the rows."""
+        lookback = window.shape[1]
+        self.buf[:, :lookback].copy_(window)
+        for dst, src in zip(self.states, states):
+            dst.copy_(src)
+        if isinstance(pos0, torch.Tensor):
+            self.pos.copy_(pos0)
+        else:
+            self.pos.fill_(pos0)
+        bits = int(seed) & 0xFFFFFFFFFFFFFFFF
+        self.seed.fill_(bits - (1 << 64) if bits >> 63 else bits)
+        if self.keys is not None:
+            self.keys.copy_(lane_keys)
+        if self.cond is not None:
+            for dst, src in zip(self.cond.ext, cond[0]):
+                dst.copy_(src)
+            self.cond.phase.copy_(cond[1])
+
+    def replay(self):
+        self.graph.replay()
+        for k, v in self.launches.items():
+            LAUNCHES[k] += v
+
+
+def _cached(key):
+    """The live graph under ``key``, or None (a dead one is dropped)."""
+    g = _GRAPHS.get(key)
+    if g is not None and not g.alive():
+        del _GRAPHS[key]
+        g = None
+    if g is not None:
+        _GRAPHS.move_to_end(key)
+    return g
+
+
+def _keep(key, g):
+    for k in [k for k, v in _GRAPHS.items() if not v.alive()]:
+        del _GRAPHS[k]
+    while len(_GRAPHS) >= GRAPHS_KEPT:
+        _GRAPHS.popitem(last=False)
+    _GRAPHS[key] = g
 
 
 @spanned("megagen.run")
@@ -82,16 +274,34 @@ def run(weights, window, states, temperature, n_top, q_levels,
     each lane's ``lane_keys`` [B, 2]; ``gumbel`` [n_bottom, f1, B, q]
     float32 replaces Philox.  ``cond``: (ext_proj, cond_phase, cond_rate)
     with ext_proj a per-tier tuple of [R, B, H] float32 rows, cond_phase
-    [B] int32, or None."""
+    [B] int32, or None.
+
+    Blocks of ``BLOCK`` top frames replay a CUDA graph (``graph_blocks``),
+    the remainder, ``n_top % BLOCK``, takes the launch loop.  The first
+    call of a structure (``graph_key``) runs its first block on the loop,
+    so that every launcher's first use (attributes, occupancy, tensor
+    maps) lies outside a capture, then captures it.  These calls keep the
+    loop throughout:
+
+    * a caller-supplied ``gumbel`` (mode 1): a block of the caller's
+      memory per bottom frame, as large as the levels' whole noise, made
+      for holding the loop against the reference, not for speed;
+    * ``ops`` other than ``KERNELS`` (``PLAIN``): the plain versions are
+      what the kernels are held against, not a path to speed up (and
+      ``Ops(*KERNELS)`` runs the same kernels on the loop);
+    * CPU tensors: no CUDA graph;
+    * a conditioned call longer than one block: K2 takes the rows' base
+      (``pos // cond_rate``) and the phase step (``pos % cond_rate``) as
+      host ints that move from block to block, and ``BLOCK`` top frames
+      (1,024 samples at lookback 64) are not a multiple of ``cond_rate``
+      (160 in config 4), so no two blocks of a call launch alike.  A
+      conditioned call of one block, the pool's chunk, replays."""
     tiers = weights["tiers"]
     mw = weights["mlp"]
     frame_sizes = [t["b_up"].shape[0] for t in tiers]
-    spans = []
-    acc = 1
+    lookback = 1
     for f in frame_sizes:
-        acc *= f
-        spans.append(acc)
-    lookback = spans[-1]
+        lookback *= f
     f1 = frame_sizes[0]
     b = window.shape[0]
     note(top_frames=n_top, lanes=b)
@@ -117,29 +327,39 @@ def run(weights, window, states, temperature, n_top, q_levels,
         lane_keys = kernel_lane_keys(lane_keys, window.device)
     lane_pos = pos0 if isinstance(pos0, torch.Tensor) else None
     pos_off = 0 if lane_pos is not None else int(pos0)
+    loop = dict(temperature=temperature, q_levels=q_levels, ops=ops,
+                seed=seed, pos_off=pos_off, lane_pos=lane_pos,
+                tier_cond=tier_cond, lane_keys=lane_keys, gumbel=gumbel)
 
-    def decode(k, upper, p):
-        """Tier k's frame starting at generated sample p."""
-        start = lookback + p
-        frame = buf[:, start - spans[k]:start]
-        if k == 0:
-            noise = None if gumbel is None else gumbel[p // f1]
-            _, h[0] = tier_frame(tiers[0], mw, frame, upper, h[0],
-                                 temperature, q_levels, ops, noise, seed,
-                                 pos_off + p, buf[:, start:start + f1],
-                                 tier_cond[0], p, lane_keys, lane_pos)
-            return
-        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
-                         tier_cond[k], p)
-        top = h[k][-1][0]          # the last layer's h
-        cond = ops.gemm(top, tiers[k]["w_up"], tiers[k]["b_up_flat"])
-        hdim = top.shape[1]
-        for j in range(frame_sizes[k]):
-            decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
-                   p + j * spans[k - 1])
-
-    for t in range(n_top):
-        decode(len(tiers) - 1, None, t * lookback)
+    done = replayed = 0
+    blocks = graph_blocks(n_top, window.device, ops, gumbel, cond)
+    if blocks:
+        mode = noise_mode(temperature, gumbel, lane_keys)
+        key = graph_key(weights, window, temperature, q_levels, mode, cond)
+        g = _cached(key)
+        if g is None:
+            _frames(tiers, mw, buf, h, range(BLOCK), **loop)
+            g = _Graph(weights, window, states, cond, mode)
+            g.capture(tiers, mw, temperature, q_levels)
+            _keep(key, g)
+            done, blocks = BLOCK, blocks - 1
+        if blocks:
+            at = done * lookback
+            g.load(buf[:, at:at + lookback],
+                   states if not done else [model_state(x) for x in h],
+                   pos0 + at if lane_pos is not None else pos_off + at,
+                   seed, lane_keys, cond)
+            width = BLOCK * lookback
+            for _ in range(blocks):
+                g.replay()
+                at = lookback + done * lookback
+                buf[:, at:at + width].copy_(g.buf[:, lookback:])
+                done += BLOCK
+                replayed += BLOCK
+            h = [decode_state(s, t["layers"])
+                 for s, t in zip(g.states, tiers)]
+    _frames(tiers, mw, buf, h, range(done, n_top), **loop)
+    note(graphed=replayed)
     return buf[:, lookback:], tuple(model_state(x) for x in h)
 
 

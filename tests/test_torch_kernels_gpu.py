@@ -933,3 +933,198 @@ def test_mxu_stream_matches_plain(cuda):
     # repeats it
     err = (got - want).abs().max().item()
     assert err <= 2 ** -7 * want.abs().max().item(), err
+
+
+# ------------------------------------- megagen.run's CUDA-graph route --
+
+def _seed_tensor(seed, dev):
+    bits = seed & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([bits - (1 << 64) if bits >> 63 else bits],
+                        dtype=torch.int64, device=dev)
+
+
+SEEDS = (5, 2 ** 63 + 12345, 2 ** 64 - 1)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "fma_bf16", "fma_f32"])
+def test_frame_decode_device_seed_equals_host_seed(cuda, route):
+    """Mode 2 with the seed read from device memory draws the same noise,
+    bit for bit, as the seed passed by value, on both kernels."""
+    if route == "wgmma":
+        args, kws = _k1_flagship(cuda)
+        kw = dict(kws[2], lane_pos=torch.arange(128, device=cuda) * 5)
+    elif route == "fma_bf16":
+        args, _ = _k1_inputs(cuda, 512, 256, 16, 37, 0)
+        kw = dict(temperature=1.0, pos0=40,
+                  lane_pos=torch.arange(37, device=cuda) * 3)
+    else:
+        cfg, params = _model(cuda)
+        mw = kdec.prepare_mlp(params["mlp"], torch.float32, 4)
+        gen = torch.Generator().manual_seed(9)
+        args = (torch.randint(0, 256, (6, 4), generator=gen,
+                              dtype=torch.int32).to(cuda),
+                torch.randn(6, 4 * cfg.dim, generator=gen).to(cuda), None,
+                mw)
+        kw = dict(temperature=0.9, pos0=11)
+    mw = args[3]
+    assert (kdec.frame_plan(mw["b_in"].shape[0], mw["b_out"].shape[0],
+                            args[0].shape[1], mw["w_h"].dtype).route
+            == ("wgmma" if route == "wgmma" else "fma"))
+    host = []
+    for seed in SEEDS:
+        want = kdec.frame_decode(*args, **dict(kw, seed=seed))
+        got = kdec.frame_decode(*args, **dict(
+            kw, seed=_seed_tensor(seed, cuda)))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        host.append(want)
+    assert not torch.equal(host[0], host[1])
+
+
+def _graph_model(name, dev):
+    """The flagship (configs/c5_gen_b128.json), samplernn-pytorch's
+    default (the flagship with n_rnn 2 and weight norm), config 4
+    (configs/c4_tts_conditioned.json), and small float32 GRU and stacked
+    LSTM models (K1's CUDA-core kernel, K6)."""
+    import dataclasses
+    from pathlib import Path
+
+    from samplernn_pase_tpu_torch.config import load_config
+    from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
+    root = Path(__file__).resolve().parents[1] / "configs"
+    flagship = load_config(root / "c5_gen_b128.json").model
+    cfg = {
+        "flagship": flagship,
+        "srnnpt_default": dataclasses.replace(flagship, n_rnn=2,
+                                              weight_norm=True),
+        "c4": load_config(root / "c4_tts_conditioned.json").model,
+        "small_f32": SampleRNNConfig(frame_sizes=(4, 2), dim=64,
+                                     embed_dim=16, compute_dtype="float32"),
+        "small_lstm_f32": SampleRNNConfig(
+            frame_sizes=(4, 2, 2), dim=64, embed_dim=16, n_rnn=2,
+            rnn_type="lstm", compute_dtype="float32"),
+    }[name]
+    params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
+                                   dev)
+    weights = megagen.prepare(params["tiers"], params["mlp"],
+                              torch_dtype(cfg.compute_dtype))
+    return cfg, weights
+
+
+def _graph_call(cfg, weights, dev, b, n_top, temp, ops, seed, call,
+                keyed=False, conditioned=False):
+    """megagen.run on inputs made from ``call``: the window, states,
+    positions (per lane when keyed) and conditioning rows."""
+    gen = torch.Generator().manual_seed(100 + call)
+    window = torch.randint(0, cfg.q_levels, (b, cfg.lookback),
+                           generator=gen, dtype=torch.int32).to(dev)
+    lead = (cfg.n_rnn,) if cfg.rnn_type == "gru" else (cfg.n_rnn, 2)
+    states = tuple((0.5 * torch.randn(*lead, b, cfg.dim,
+                                      generator=gen)).to(dev)
+                   for _ in cfg.frame_sizes)
+    pos0 = 1000 * call
+    keys = None
+    if keyed:
+        pos0 = torch.randint(0, 1 << 20, (b,), generator=gen).to(dev)
+        keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen).to(dev)
+    cond = None
+    if conditioned:
+        rate = cfg.cond_rate
+        rows = (n_top * cfg.lookback - 1) // rate + 2
+        cond = (tuple(torch.randn(rows, b, cfg.dim, generator=gen).to(dev)
+                      for _ in cfg.frame_sizes),
+                torch.randint(0, rate, (b,), generator=gen,
+                              dtype=torch.int32).to(dev), rate)
+    kdec.reset_launches()
+    out = megagen.run(weights, window, states, temp, n_top, cfg.q_levels,
+                      ops, seed, pos0, None, cond, keys)
+    torch.cuda.synchronize()
+    return out, dict(kdec.LAUNCHES)
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """An empty graph cache, and a count of replays."""
+    monkeypatch.setattr(megagen, "_GRAPHS", type(megagen._GRAPHS)())
+    count = {"replays": 0}
+    replay = megagen._Graph.replay
+
+    def counted(self):
+        count["replays"] += 1
+        replay(self)
+
+    monkeypatch.setattr(megagen._Graph, "replay", counted)
+    return count
+
+
+_B = megagen.BLOCK
+LOOP = kdec.Ops(*kdec.KERNELS)      # the same kernels on the launch loop
+
+# (model, lanes, n_top, temperature, lane keys, conditioned)
+GRAPH_CASES = {
+    "flagship_greedy_remainder": ("flagship", 128, 2 * _B + 3, 0.0, False,
+                                  False),
+    "flagship_seed_below_a_block": ("flagship", 128, _B - 1, 0.95, False,
+                                    False),
+    "flagship_seed_one_block": ("flagship", 128, _B, 0.95, False, False),
+    "flagship_lane_keys_remainder": ("flagship", 128, 2 * _B + 3, 1.0,
+                                     True, False),
+    "srnnpt_default_seed": ("srnnpt_default", 128, 3 * _B + 2, 1.0, False,
+                            False),
+    "c4_conditioned_one_block": ("c4", 128, _B, 1.0, True, True),
+    "c4_conditioned_two_blocks": ("c4", 128, 2 * _B, 1.0, True, True),
+    "small_f32_seed": ("small_f32", 6, 2 * _B + 3, 0.9, False, False),
+    "small_lstm_f32_seed": ("small_lstm_f32", 5, 2 * _B + 1, 0.9, False,
+                            False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_graphed_run_equals_launch_loop(cuda, graphs, name):
+    """Two calls of one structure with other seeds (one past 2**63),
+    positions, states and rows: the first captures (its first block on
+    the loop), the second replays from its start.  Levels and final
+    states equal the launch loop's bit for bit, and ``LAUNCHES`` counts
+    alike."""
+    model, b, n_top, temp, keyed, conditioned = GRAPH_CASES[name]
+    cfg, weights = _graph_model(model, cuda)
+    cond = (((), None, cfg.cond_rate) if conditioned else None)
+    blocks = megagen.graph_blocks(n_top, cuda, kdec.KERNELS, None, cond)
+    for call, seed in enumerate((7, 2 ** 63 + 5)):
+        before = graphs["replays"]
+        got, got_n = _graph_call(cfg, weights, cuda, b, n_top, temp,
+                                 kdec.KERNELS, seed, call, keyed,
+                                 conditioned)
+        want, want_n = _graph_call(cfg, weights, cuda, b, n_top, temp, LOOP,
+                                   seed, call, keyed, conditioned)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        for a, c in zip(got[1], want[1], strict=True):
+            torch.testing.assert_close(a, c, rtol=0, atol=0)
+        assert got_n == want_n and got_n["frame_decode"] > 0
+        assert graphs["replays"] - before == max(blocks - (call == 0), 0)
+    assert len(megagen._GRAPHS) == (1 if blocks else 0)
+
+
+def test_graphed_run_follows_replaced_and_modified_weights(cuda, graphs):
+    """A weight tensor replaced between calls gives a new capture, never a
+    replay of the old graph; one modified in place is read anew."""
+    cfg, weights = _graph_model("small_f32", cuda)
+    n_top = 2 * _B
+
+    def both():
+        got, _ = _graph_call(cfg, weights, cuda, 6, n_top, 0.9,
+                             kdec.KERNELS, 3, 1)
+        want, _ = _graph_call(cfg, weights, cuda, 6, n_top, 0.9, LOOP, 3, 1)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        return got[0]
+
+    first = both()
+    (old,) = megagen._GRAPHS
+    weights["mlp"]["w_h"] = weights["mlp"]["w_h"] * -1.0
+    assert not torch.equal(both(), first)
+    # the old graph's w_h died with its last reference: dropped, and a
+    # new graph captured and replayed once
+    (new,) = megagen._GRAPHS
+    assert new != old and graphs["replays"] == 2
+    weights["mlp"]["w_out"].mul_(0.5)
+    both()
+    assert list(megagen._GRAPHS) == [new] and graphs["replays"] == 4

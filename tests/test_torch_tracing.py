@@ -192,7 +192,7 @@ def test_pool_start_and_emit_spans():
     assert _parent(prep) is emit
     (run,) = _named("megagen.run")
     assert _parent(run) is levels
-    assert run.attrs == {"top_frames": 2, "lanes": 3}
+    assert run.attrs == {"top_frames": 2, "lanes": 3, "graphed": 0}
     (proj,) = _named("generate.project_cond")
     assert _parent(proj) is levels and proj.t1 <= run.t0
     for name in ("serve.host_copy", "serve.host_wait"):
@@ -261,7 +261,7 @@ def test_generate_levels_spans(route):
     if route:
         (run,) = runs
         assert _parent(run) is levels
-        assert run.attrs == {"top_frames": 3, "lanes": 2}
+        assert run.attrs == {"top_frames": 3, "lanes": 2, "graphed": 0}
         (prep,) = _named("generate.prepare_weights")
         assert _parent(prep) is levels
     else:
