@@ -18,6 +18,11 @@ on 132 SMs), and a tier the kernel cannot take raises ``ValueError`` with
 the reason.  ``False`` is the reference's own scan route, the autograd
 ``rnn_scan``, everywhere, and the only route that scans on the card.  On
 CPU tensors ``True`` runs the kernels' plain versions; ``"auto"`` scans.
+
+Under a profiler ``forward`` records a span ``samplernn.tier`` around each
+tier's pass (``utils/profiling.py``), with attrs ``tier`` (k), ``cell``
+(``rnn_type``), ``steps`` (frames in the chunk), ``layers`` (``n_rnn``)
+and ``route`` ("kernel" or "scan").
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from samplernn_pase_tpu_torch.ops.mulaw import levels_to_float
 from samplernn_pase_tpu_torch.parallel.mesh import (
     all_reduce, axis_group, axis_size, model_group)
 from samplernn_pase_tpu_torch.tree import tree_map
+from samplernn_pase_tpu_torch.utils import profiling
 
 Params = dict
 State = tuple
@@ -197,14 +203,17 @@ def forward(params: Params, cfg: SampleRNNConfig, inputs, state: State,
                 p, fr, up, ex, st, frame_size=_fs, rnn_type=cfg.rnn_type,
                 compute_dtype=dt, use_kernel=_use)
 
-        if cfg.remat:
-            # recompute the tier's activations in the backward pass
-            upper, new_states[k] = torch.utils.checkpoint.checkpoint(
-                apply_fn, params["tiers"][k], frames, upper, ext, state[k],
-                use_reentrant=False)
-        else:
-            upper, new_states[k] = apply_fn(params["tiers"][k], frames,
-                                            upper, ext, state[k])
+        with profiling.span("samplernn.tier", tier=k, cell=cfg.rnn_type,
+                            steps=t // span, layers=cfg.n_rnn,
+                            route="kernel" if use_kernel else "scan"):
+            if cfg.remat:
+                # recompute the tier's activations in the backward pass
+                upper, new_states[k] = torch.utils.checkpoint.checkpoint(
+                    apply_fn, params["tiers"][k], frames, upper, ext,
+                    state[k], use_reentrant=False)
+            else:
+                upper, new_states[k] = apply_fn(params["tiers"][k], frames,
+                                                upper, ext, state[k])
     f1 = cfg.frame_sizes[0]
     mlp_samples = inputs[:, lookback - f1: lookback + t - 1]
     logits = sample_mlp.mlp_apply(params["mlp"], mlp_samples, upper, f1, dt,

@@ -3,7 +3,8 @@ and no clock read without a profiler; names, parents, attrs and the
 buffer's bound under one; each span's ``e0`` against its own
 ``record_function`` event; and the spans of the serving pool,
 ``run_jobs``, the kernel route of ``generate_levels`` and
-``Trainer.run``, with ``Trainer.host_s`` equal to its spans' sums."""
+``Trainer.run``, with ``Trainer.host_s`` equal to its spans' sums, and
+``forward``'s ``samplernn.tier`` spans inside each ``train.forward``."""
 
 import collections
 import time
@@ -307,3 +308,30 @@ def test_trainer_host_s_without_a_profiler():
     assert t.global_step > 0
     assert all(t.host_s[k] > 0 for k in ("data", "stage", "dispatch",
                                           "sync", "plugins"))
+
+
+@pytest.mark.parametrize("route", [True, "auto"], ids=["kernel", "scan"])
+def test_tier_spans_nest_under_train_forward(route):
+    cfg = SampleRNNConfig(frame_sizes=(4, 2, 2), dim=16, embed_dim=8,
+                          rnn_type="lstm", compute_dtype="float32",
+                          pallas_train_rnn=route)
+    tcfg = TrainConfig(batch_size=2, seq_len=32, epochs=1, steps_per_call=2)
+    t = Trainer(cfg, tcfg, synthetic_corpus(n_utts=2, length=128),
+                device="cpu")
+    t.run()                                   # no profiler: nothing kept
+    assert profiling.spans() == []
+    steps = t.global_step
+    with _profiled():
+        t.run()                               # the same epoch again
+    forwards = {s.index: s for s in _named("train.forward")}
+    tiers = _named("samplernn.tier")
+    assert len(forwards) == t.global_step - steps == steps > 0
+    assert len(tiers) == 3 * len(forwards)
+    name = "kernel" if route is True else "scan"
+    for fwd in forwards.values():
+        mine = [s for s in tiers if s.parent == fwd.index]
+        assert [s.attrs for s in mine] == [
+            {"tier": k, "cell": "lstm", "steps": 32 // span, "layers": 1,
+             "route": name} for k, span in ((2, 16), (1, 8), (0, 4))]
+        assert all(fwd.t0 <= s.t0 <= s.t1 <= fwd.t1 for s in mine)
+        assert all(a.t1 <= b.t0 for a, b in zip(mine, mine[1:]))
