@@ -39,8 +39,8 @@
 // the chain's latency.  Two kernels, chosen by decode.frame_plan (never
 // by the batch):
 //
-// * the wgmma kernel (bf16 weights at dim 1024, q 256: every preset that
-//   generates; below, namespace tcd): tensor-core products, weights by
+// * the tensor-core kernel (bf16 weights at dim 1024, q 256: every preset
+//   that generates; below, namespace tcd): mma.sync products, weights by
 //   TMA through a ring, the activations exchanged by bulk copies
 //   completed on the receivers' mbarriers, the next step's gathers and
 //   noise off the chain;
@@ -74,12 +74,14 @@ constexpr int THREADS = 256;  // >= 32 * LT: one warp per lane for argmax
 // layer 2's products done, 4 its K-split sum done, 5 h2 pushed and the
 // barrier passed, 10 layer 3's products done, 6 its sum done, 7 noise
 // added, 8 the argmax partials pushed and the barrier passed, 9 the
-// window rolled.  wgmma kernel: 0 step start, 1 the h1 slice sent, 11
-// the next cond row issued, 12 the next rows issued, 2 h1 whole, 3 layer
-// 2's products done, 4 h2 slice sent, 5 h2 whole, 10 layer 3's products
-// done, 6 its partial sent, 13 the next step's row sums done, 7 the
-// leader's argmax partial sent, 8 every partial here, 9 the sample taken;
-// 14 and 15 the cycles spent waiting for weight boxes in layers 2 and 3.
+// window rolled.  Tensor-core kernel: 0 step start, 1 the h1 slice sent,
+// 11 the next cond row issued, 12 the next rows issued, 2 h1 whole, 3 its
+// warp's layer-2 products done (K-half 0, 32 columns), 4 h2 slice sent
+// (after every warp's products, the K-halves' sum, bias, relu), 5 h2
+// whole, 10 its warp's layer-3 products done, 6 its partial sent, 13 the
+// next step's row sums done, 7 the leader's argmax partial sent, 8 every
+// partial here, 9 the sample taken; 14 and 15 the cycles thread 0 spent
+// waiting for weight boxes in layers 2 and 3.
 // At trace[TRACE_STEPS * 16 + 0..3]: clock64 and %globaltimer at block 0's
 // entry and exit; at + 4 + 2 * block, + 5 + 2 * block: %globaltimer at
 // each block's entry and exit (how many waves the grid ran in).
@@ -427,27 +429,39 @@ int launch(const int32_t* window, int64_t ldw, const float* cond,
 
 
 // ---------------------------------------------------------------------
-// The wgmma kernel (bf16).
+// The tensor-core kernel (bf16).
 //
 // Built for one shape, dim 1024 (H = CL * HC): a tile of LT = 16 lanes is
 // one cluster of CL = 8 blocks; block r owns HC = 128 columns of W_h
 // (layer 2) and one 64-column tile t = r / split of W_out over K-slice
 // s = r % split (layer 3), so each weight is read by one block of the
-// cluster.  The products run swapped: the block's weight columns are
-// wgmma's M (64 per instruction, A from shared memory, MN-major), the
-// tile's lanes its N (B = h1 or h2 in shared memory, K-major), float32
-// accumulation; h1 and h2 are bf16 by the kernel's definition, so only
-// the order of the float32 sums differs from the CUDA-core kernel.
-// Layer 2: warpgroup w takes M-tile w for all lanes; layer 3: warpgroup
-// w takes half of the block's K-slice, and its partial reaches the
-// tile's leader (s = 0) as partial 2s + w, summed there in that order.
-// The plan (decode.frame_plan) never reads B, so a lane's samples do not
-// depend on the batch.
+// cluster.  The products are warp-level mma.sync m16n8k16 (bf16 in,
+// float32 accumulation): the tile's 16 lanes are M, the block's weight
+// columns N.  Their fragments come from shared memory by ldmatrix: the
+// lanes' (A) from h1 or h2, K-major panels, and the weights' (B) with
+// .trans from the boxes as TMA lands them (K-rows, swizzled), so each
+// weight byte is read from shared memory once a step and each lane
+// fragment serves every column its warp owns.  (scripts/k1_products.cu
+// times the product of resident boxes in this form, in SS and RS wgmma
+// at N = 16, against the shared-memory floor; here SS wgmma took about
+// 64 SM clocks an instruction, 3x its time alone.)  h1 and h2 are bf16
+// by the kernel's definition, so only the order of the float32 sums
+// differs from the CUDA-core kernel.  Layer 2: warp w of the consumers
+// sums K-half w / 4 (its warpgroup's) for 32 columns of 64-column tile
+// (w % 4) / 2; the two halves' sums meet in xsum, warpgroup 0 finishing
+// lanes 0-7, warpgroup 1 lanes 8-15.  Layer 3:
+// warpgroup w takes half of the block's K-slice, each warp 16 of the 64
+// columns, and its partial reaches the tile's leader (s = 0) as partial
+// 2s + w, summed there in that order.  The plan (decode.frame_plan)
+// never reads B, so a lane's samples do not depend on the batch.
 //
 // Weights: a producer warp streams the step's boxes (128 rows x 64
 // columns, 128-byte swizzle) through a ring of `stages` slots in the
-// order the warpgroups consume them (full and empty mbarriers per slot;
-// lane l owns slot l, so copies wait only for their own slot), across
+// order the warps consume them (layer 2's in box_order: the groups'
+// boxes interleaved, the box before each in its slot the same group's;
+// full and empty mbarriers per slot, the empty one freed by every thread
+// that read the box; lane l owns slot l, so copies wait only for their
+// own slot), across
 // steps and tiles, so the next step's first boxes land while a block
 // waits at an exchange.  A copy costs its issuing thread about as much
 // whatever its size (PERF.md), so boxes are 16 KB.
@@ -486,7 +500,10 @@ constexpr int CONSUMERS = 256;                 // two warpgroups
 constexpr int TC_THREADS = CONSUMERS + 64;     // the producer and noise warps
 constexpr int BR = 128;                        // weight rows per box
 constexpr int BOXB = BR * 64 * 2;              // one box of 64 columns, bytes
-constexpr int MAX_STAGES = 28;
+constexpr int NBOX2 = CL * HC / BR * (HC / 64);  // layer 2's boxes a step
+constexpr int GBOX = NBOX2 / 4;   // of them a group (K-half, tile) reads
+constexpr int MIN_STAGES = 8;                  // ring slots (box_order)
+constexpr int MAX_STAGES = 24;   // static shared memory: 512 bytes
 constexpr int SMEM_MAX = 231936;               // dynamic, bytes
 
 struct Params {
@@ -513,6 +530,35 @@ struct Params {
   int split, stages, tiles;
   unsigned long long* trace;
 };
+
+// Layer 2's boxes of a step in ring order, for a ring of S slots:
+// box_of[x] = GBOX g + r, the r-th box (in K order) of group g = 2 K-half +
+// tile, read by the group's two warps.  A warp waits for its box x by the
+// parity of the slot's full barrier, which names box x only if the
+// slot's box before, x - S, has landed; it has if the same warps read it.
+// So every base b < S (boxes b, b + S, ... of the step) goes to one
+// group, the next in turn with room for them all; boxes of an earlier
+// step or of layer 2 (for layer 3's) were read before the warps began.
+// False where no group has room (some rings of fewer than 8 slots).
+__host__ __device__ inline bool box_order(int S, uint8_t* box_of) {
+  int count[4] = {0, 0, 0, 0}, base[NBOX2];
+  int next = 0;
+  for (int b = 0; b < S && b < NBOX2; ++b) {
+    const int m = (NBOX2 - 1 - b) / S + 1;   // boxes of base b
+    int k = 0;
+    while (k < 4 && count[(next + k) % 4] + m > GBOX) ++k;
+    if (k == 4) return false;
+    base[b] = (next + k) % 4;
+    count[base[b]] += m;
+    next = (base[b] + 1) % 4;
+  }
+  int r[4] = {0, 0, 0, 0};
+  for (int x = 0; x < NBOX2; ++x) {
+    const int g = base[x % S];
+    box_of[x] = static_cast<uint8_t>(GBOX * g + r[g]++);
+  }
+  return true;
+}
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -596,19 +642,22 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 frame_decode_tc_kernel(const __grid_constant__ Params p,
                 const __grid_constant__ CUtensorMap wh_map,
                 const __grid_constant__ CUtensorMap wo_map) {
-  constexpr int MT = HC / 64;                   // layer-2 M-tiles
+  constexpr int MT = HC / 64;                   // layer-2 tiles of 64
   constexpr int ITEMS = LT * HC / 8;            // layer-1 items of 8 columns
   constexpr int TPL = CONSUMERS / LT;           // leader threads per lane
   constexpr int NPT = 64 / TPL;                 // logit columns per thread
-  static_assert(MT == 2, "one layer-2 M-tile per warpgroup");
+  static_assert(MT == 2 && CONSUMERS == 256, "layer 2: warp w takes K-half "
+                "w / 4 and 32 columns of tile (w % 4) / 2");
   static_assert(TPL <= 32 && NPT % 4 == 0, "a lane's logits in one warp, "
                 "four levels per Philox block");
   static_assert(ITEMS <= CONSUMERS, "one layer-1 item per thread");
+  static_assert(CONSUMERS / 32 >= CL - 1, "one h2 copy a consumer warp");
 
   __shared__ __align__(8) uint64_t full[MAX_STAGES];
   __shared__ __align__(8) uint64_t empty[MAX_STAGES];
   __shared__ __align__(8) uint64_t bars[4];     // h1, h2, partials, argmax
   __shared__ __align__(8) uint64_t gfull[2], gfree[2];   // noise buffers
+  __shared__ uint8_t box_of[NBOX2], pos_of[NBOX2];       // box_order
   extern __shared__ __align__(128) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
@@ -619,21 +668,22 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
   uint8_t* h2 = h1 + LT * H * 2;
   uint2* argp = reinterpret_cast<uint2*>(h2 + LT * H * 2);   // [T][LT]
   float* gbuf = reinterpret_cast<float*>(argp + T * LT);    // [2][LT][64]
-  int16_t* win = reinterpret_cast<int16_t*>(gbuf + 2 * LT * 64);  // [LT][F1]
+  // layer 2's K-half sums: [warp][2][32 threads] float4
+  float4* xsum = reinterpret_cast<float4*>(gbuf + 2 * LT * 64);
+  int16_t* win = reinterpret_cast<int16_t*>(xsum + 2 * CONSUMERS);  // [LT][F1]
   float* part = reinterpret_cast<float*>(h1);   // [2 split][LT][64]
 
   const int tid = threadIdx.x;
-  // warp-uniform as far as the compiler can see: a wgmma in a branch it
-  // takes for divergent is serialized (ptxas C7520)
+  // warp-uniform as far as the compiler can see (the products' ldmatrix
+  // and mma.sync are .aligned: every lane of a warp runs them together)
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), wg = warp / 4;
   const int rank = static_cast<int>(cluster_rank());
   const int tq = rank / p.split, sq = rank % p.split;
   const bool leader = sq == 0;
   const int ch = rank * HC;
-  const int nbox2 = (H / BR) * MT;
   const int rows3 = H / p.split;
   const int nbox3 = rows3 / BR;
-  const int nbox = nbox2 + nbox3;
+  const int nbox = NBOX2 + nbox3;
   const int cid = blockIdx.x / CL, nclusters = gridDim.x / CL;
   const int my_tiles = (p.tiles - cid + nclusters - 1) / nclusters;
   unsigned long long* tr = TRACE ? p.trace : nullptr;
@@ -650,10 +700,14 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      // 2 arrivals per thread of one warpgroup, or 1 per thread of both
+      // every thread that reads the box: 4 each of two warps (layer 2),
+      // 2 each of four (layer 3)
       mbar_init(&empty[s], 256);
     }
     for (int s = 0; s < 4; ++s) mbar_init(&bars[s], 1);
+    box_order(S, box_of);   // the launcher checked that it exists
+    for (int x = 0; x < NBOX2; ++x)
+      pos_of[box_of[x]] = static_cast<uint8_t>(x);
     for (int s = 0; s < 2; ++s) {
       mbar_init(&gfull[s], 32);          // the noise warp's lanes
       mbar_init(&gfree[s], CONSUMERS);   // the leader's consumers
@@ -675,12 +729,14 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
         wait_phase<false>(&empty[slot], static_cast<int>((c / S - 1) & 1));
       const int j = static_cast<int>(c % nbox);
       mbar_expect_tx(&full[slot], BOXB);
-      if (j < nbox2)
-        tma_box(ring + slot * BOXB, &wh_map, ch + 64 * (j % MT),
-                BR * (j / MT), &full[slot]);
-      else
+      if (j < NBOX2) {   // box r of group g = 2 K-half + tile
+        const int g = box_of[j] / GBOX, r = box_of[j] % GBOX;
+        tma_box(ring + slot * BOXB, &wh_map, ch + 64 * (g % MT),
+                BR * (g / MT * GBOX + r), &full[slot]);
+      } else {
         tma_box(ring + slot * BOXB, &wo_map, 64 * tq,
-                sq * rows3 + BR * (j - nbox2), &full[slot]);
+                sq * rows3 + BR * (j - NBOX2), &full[slot]);
+      }
     }
     __syncwarp();
     cluster_arrive();   // no block leaves while its shared memory may be
@@ -733,10 +789,24 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
   }
   {
     // ---- consumers ----
-    const int t128 = tid % 128;
-    const int m0 = 16 * (t128 / 32) + (t128 % 32) / 4;   // accumulator rows
+    const int t128 = tid % 128, lane = tid % 32;
+    const int fr = lane / 4, fc = lane % 4;   // mma.sync fragment row, pair
+    // ldmatrix: lane t addresses row t % 8 of matrix t / 8, here row lr of
+    // the 16 lanes (or of a 16-row K-step of weights) and half lh of the
+    // 16 columns of K (or of weights)
+    const int lr = ((lane / 8) & 1) * 8 + lane % 8, lh = lane / 16;
     const uint32_t ring_u = smem_u32(ring), h1_u = smem_u32(h1),
                    h2_u = smem_u32(h2);
+    // the 16 lanes' fragment of K-step s of h1 or h2 (K-major panels)
+    auto lanes_at = [&](uint32_t hb, int s) {
+      return hb + (s / 4) * LT * 128 + lr * 128 +
+             (((2 * (s % 4) + lh) ^ (lr % 8)) * 16);
+    };
+    // the transposed fragment of K-step s, columns [col, col + 16), of a
+    // box (rows 128 bytes apart, swizzled)
+    auto weights_at = [&](uint32_t box, int s, int col) {
+      return box + (16 * s + lr) * 128 + (((col / 8 + lh) ^ (lr % 8)) * 16);
+    };
     const uint32_t bars_u = smem_u32(bars);
     // exchange mbarrier k (h1, h2, partials, argmax) of block r
     auto rbar = [&](int r, int k) { return mapa(bars_u + 8 * k, r); };
@@ -754,9 +824,14 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
     int last = 0;
 #pragma unroll
     for (int v = 0; v < 8; ++v) bin[v] = item ? p.b_in[c0 + v] : 0.f;
-    const int mt = wg;
-    const float bh0 = p.b_h[ch + 64 * mt + m0];
-    const float bh1 = p.b_h[ch + 64 * mt + m0 + 8];
+    // layer 2's tile and columns: col2 + 8 t + (0, 1) for t < 4
+    const int mt = (warp % 4) / 2, c32 = 32 * (warp % 2);
+    const int col2 = ch + 64 * mt + c32 + 2 * fc;
+    float bh[4][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) bh[t][jj] = p.b_h[col2 + 8 * t + jj];
     const int ln = tid / TPL;     // the leader's lane and its columns
     float bo[NPT], gn[NPT];
 #pragma unroll
@@ -891,118 +966,119 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
         if (more) issue_rows(i + 1, 0);
         if (tracing && i < TRACE_STEPS) tr[i * 16 + 12] = clock64();
         wait_phase<true>(&bars[0], par);
-        fence_proxy_async();
         if (tracing && i < TRACE_STEPS) tr[i * 16 + 2] = clock64();
 
-        // ---- layer 2: h2 = relu(h1 @ W_h + b_h), own columns ----
+        // ---- layer 2: h2 = relu(h1 @ W_h + b_h), own columns; warp w
+        // sums K-half wg over 32 columns of tile mt ----
         long long waited = 0;      // cycles spent waiting for weight boxes
         {
-          float acc[LT / 2];
+          float acc[4][4];         // [8-column group][mma.sync D]
 #pragma unroll
-          for (int e = 0; e < LT / 2; ++e) acc[e] = 0.f;
-          for (int kt = 0; kt < H / BR; ++kt) {
-            const int j = kt * MT + mt;
-            const int64_t c = gs * nbox + j;
+          for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+          for (int r = 0; r < GBOX; ++r) {
+            const int kt = wg * GBOX + r;
+            const int64_t c = gs * nbox + pos_of[GBOX * (MT * wg + mt) + r];
             const int slot = static_cast<int>(c % S);
-            // read by every thread: a branch here serializes wgmma (C7515)
             const long long w0 = TRACE ? clock64() : 0;
+            // the slot's box before has landed (box_order): the parity
+            // names box c
             wait_phase<false>(&full[slot], static_cast<int>((c / S) & 1));
             if (TRACE) waited += clock64() - w0;
-            const uint32_t a0 = ring_u + slot * BOXB;
-            const uint32_t b0 = h1_u + kt * (BR / 64) * LT * 128;
-            fence_regs(acc);
-            wgmma_fence();
+            const uint32_t box = ring_u + slot * BOXB;
 #pragma unroll
-            for (int s = 0; s < BR / 16; ++s)
-              wgmma<LT, 1, 0>(acc, desc(a0 + s * 2048, 8192, 1024, 1),
-                              desc(b0 + (s / 4) * LT * 128 + (s % 4) * 32,
-                                   16, 1024, 1), 1);
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_regs(acc);
-            if (kt > 0)   // the box before is read: free it
-              arrive_n(&empty[static_cast<int>((c - MT) % S)], MT);
+            for (int s = 0; s < BR / 16; ++s) {
+              uint32_t a[4], b[4];
+              ldmatrix4<false>(a, lanes_at(h1_u, kt * (BR / 16) + s));
+#pragma unroll
+              for (int hq = 0; hq < 2; ++hq) {
+                ldmatrix4<true>(b, weights_at(box, s, c32 + 16 * hq));
+                mma_bf16(acc[2 * hq], a, b[0], b[1]);
+                mma_bf16(acc[2 * hq + 1], a, b[2], b[3]);
+              }
+            }
+            arrive_n(&empty[slot], 4);   // read by two warps: free it
           }
-          wgmma_wait<0>();
-          fence_regs(acc);
-          arrive_n(&empty[static_cast<int>(
-              (gs * nbox + (H / BR - 1) * MT + mt) % S)], MT);
           if (tracing && i < TRACE_STEPS) {
             tr[i * 16 + 3] = clock64();
             tr[i * 16 + 14] = waited;
             waited = 0;
           }
-          // epilogue: bias, relu, bf16 into the own slice of h2
-          const int col = ch + 64 * mt + m0;
+          // the K-halves' sums meet in xsum: each warp hands the other
+          // half's warp of its columns the lanes that warp finishes,
+          // lanes 0-7 finishing in warpgroup 0 and 8-15 in warpgroup 1
 #pragma unroll
-          for (int nn = 0; nn < LT / 8; ++nn)
+          for (int u = 0; u < 2; ++u)   // the lanes the other warp keeps
+            xsum[(2 * warp + u) * 32 + lane] = wg
+                ? make_float4(acc[2 * u][0], acc[2 * u][1],
+                              acc[2 * u + 1][0], acc[2 * u + 1][1])
+                : make_float4(acc[2 * u][2], acc[2 * u][3],
+                              acc[2 * u + 1][2], acc[2 * u + 1][3]);
+          named_sync(1, CONSUMERS);
+          // epilogue: the sum, bias, relu, bf16 into the own slice of h2
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
+          for (int u = 0; u < 2; ++u) {
+            const float4 o = xsum[(2 * (warp ^ 4) + u) * 32 + lane];
+            const float other[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                const int n = 8 * nn + 2 * (t128 % 4) + jj;
-                const float v = fmaxf(acc[4 * nn + 2 * hh + jj] +
-                                          (hh ? bh1 : bh0), 0.f);
-                *reinterpret_cast<__nv_bfloat16*>(
-                    h2 + kmajor(LT, n, col + 8 * hh)) = __float2bfloat16_rn(v);
-              }
-          fence_proxy_async();
-          named_sync(2 + wg, 128);
-          if (t128 == 0) {   // this warpgroup's panel, whole
-            const uint32_t off = kmajor(LT, 0, ch + 64 * mt);
-#pragma unroll
-            for (int r = 0; r < CL; ++r)
-              if (r != rank)
-                bulk_to(mapa(h2_u + off, r), h2_u + off, LT * 128,
-                        rbar(r, 1));
+            for (int t = 2 * u; t < 2 * u + 2; ++t) {
+              const float x0 = (wg ? acc[t][2] : acc[t][0]) +
+                               other[2 * (t - 2 * u)];
+              const float x1 = (wg ? acc[t][3] : acc[t][1]) +
+                               other[2 * (t - 2 * u) + 1];
+              *reinterpret_cast<uint32_t*>(
+                  h2 + kmajor(LT, fr + 8 * wg, col2 + 8 * t)) =
+                  pack_bf16(fmaxf(x0 + bh[t][0], 0.f),
+                            fmaxf(x1 + bh[t][1], 0.f));
+            }
+          }
+          fence_proxy_async();      // the slice, to the bulk copies
+          named_sync(1, CONSUMERS);
+          if (lane == 0 && warp < CL - 1) {   // into the other blocks, one
+            const uint32_t off = (ch / 64) * LT * 128;   // copy a warp
+            const int to = (rank + 1 + warp) % CL;
+            bulk_to(mapa(h2_u + off, to), h2_u + off, LT * HC * 2,
+                    rbar(to, 1));
           }
         }
         if (tracing && i < TRACE_STEPS) tr[i * 16 + 4] = clock64();
-        named_sync(1, CONSUMERS);   // the own slice of h2 is whole
         if (more) {
           add_rows(0);
           take_cond();
           issue_rows(i + 1, 8);
         }
         wait_phase<true>(&bars[1], par);
-        fence_proxy_async();
         if (tracing && i < TRACE_STEPS) tr[i * 16 + 5] = clock64();
 
-        // ---- layer 3: partial logits of the own tile and K-slice ----
+        // ---- layer 3: partial logits of the own tile and K-slice; warp
+        // w sums the warpgroup's half of the slice over 16 columns ----
         {
-          float acc[LT / 2];
+          float acc[2][4];
 #pragma unroll
-          for (int e = 0; e < LT / 2; ++e) acc[e] = 0.f;
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
           const int half = nbox3 / 2;
           for (int kk = 0; kk < half; ++kk) {
             const int kt = wg * half + kk;
-            const int j = nbox2 + kt;
-            const int64_t c = gs * nbox + j;
+            const int64_t c = gs * nbox + NBOX2 + kt;
             const int slot = static_cast<int>(c % S);
-            // read by every thread: a branch here serializes wgmma (C7515)
             const long long w0 = TRACE ? clock64() : 0;
             wait_phase<false>(&full[slot], static_cast<int>((c / S) & 1));
             if (TRACE) waited += clock64() - w0;
-            const uint32_t a0 = ring_u + slot * BOXB;
-            const uint32_t b0 =
-                h2_u + (sq * rows3 / 64 + kt * (BR / 64)) * LT * 128;
-            fence_regs(acc);
-            wgmma_fence();
+            const uint32_t box = ring_u + slot * BOXB;
+            const int s0 = (sq * rows3 + kt * BR) / 16;   // h2's K-steps
 #pragma unroll
-            for (int s = 0; s < BR / 16; ++s)
-              wgmma<LT, 1, 0>(acc, desc(a0 + s * 2048, 8192, 1024, 1),
-                              desc(b0 + (s / 4) * LT * 128 + (s % 4) * 32,
-                                   16, 1024, 1), 1);
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_regs(acc);
-            if (kk > 0)
-              arrive_n(&empty[static_cast<int>((c - 1) % S)], 2);
+            for (int s = 0; s < BR / 16; ++s) {
+              uint32_t a[4], b[4];
+              ldmatrix4<false>(a, lanes_at(h2_u, s0 + s));
+              ldmatrix4<true>(b, weights_at(box, s, 16 * (warp % 4)));
+              mma_bf16(acc[0], a, b[0], b[1]);
+              mma_bf16(acc[1], a, b[2], b[3]);
+            }
+            arrive_n(&empty[slot], 2);   // read by the warpgroup: free it
           }
-          wgmma_wait<0>();
-          fence_regs(acc);
-          arrive_n(&empty[static_cast<int>(
-              (gs * nbox + nbox2 + wg * half + half - 1) % S)], 2);
           if (tracing && i < TRACE_STEPS) {
             tr[i * 16 + 10] = clock64();
             tr[i * 16 + 15] = waited;
@@ -1012,20 +1088,19 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
           // the leader
           float* mine = part + (2 * sq + wg) * 64 * LT;
 #pragma unroll
-          for (int nn = 0; nn < LT / 8; ++nn)
+          for (int t = 0; t < 2; ++t)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj)
-                mine[(8 * nn + 2 * (t128 % 4) + jj) * 64 + m0 + 8 * hh] =
-                    acc[4 * nn + 2 * hh + jj];
+              *reinterpret_cast<float2*>(
+                  mine + (fr + 8 * hh) * 64 + 16 * (warp % 4) + 8 * t +
+                  2 * fc) = make_float2(acc[t][2 * hh], acc[t][2 * hh + 1]);
           fence_proxy_async();
           named_sync(2 + wg, 128);
           if (!leader && t128 == 0) {
-            const int lr = tq * p.split;
+            const int to = tq * p.split;
             const uint32_t off = smem_u32(mine) - h1_u;
-            bulk_to(mapa(h1_u + off, lr), h1_u + off, 64 * LT * 4,
-                    rbar(lr, 2));
+            bulk_to(mapa(h1_u + off, to), h1_u + off, 64 * LT * 4,
+                    rbar(to, 2));
           }
         }
         if (tracing && i < TRACE_STEPS) tr[i * 16 + 6] = clock64();
@@ -1141,10 +1216,10 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
   }
 }
 
-// dynamic shared memory of a plan (decode.py:_wgmma_plan mirrors it)
+// dynamic shared memory of a plan (decode.py:_tc_plan mirrors it)
 inline int smem_bytes(int hdim, int q, int f1, int stages) {
   return 1024 + 2 * LT * hdim * 2 + (q / 64) * LT * 8 + 2 * LT * 64 * 4 +
-         (LT * f1 * 2 + 15) / 16 * 16 + stages * BOXB;
+         CONSUMERS * 8 * 4 + (LT * f1 * 2 + 15) / 16 * 16 + stages * BOXB;
 }
 
 void config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int clusters,
@@ -1212,7 +1287,8 @@ int launch(Params p, const void* w_h, const void* w_out,
 
 }  // namespace tcd
 
-// plan[0..4]: route (1 wgmma, 0 fma), cluster, lanes, out_split, stages
+// plan[0..4]: route (1 tensor cores, 0 fma), cluster, lanes, out_split,
+// stages
 // (decode.py:frame_plan, _plan_words).
 int decode(const int32_t* window, int64_t ldw, const float* cond,
            int64_t ldc, const float* bup, const void* w_fused,
@@ -1226,10 +1302,12 @@ int decode(const int32_t* window, int64_t ldw, const float* cond,
     // the built shape; out_split <= 4: the layer-3 partials fit in h1's
     // space and each warpgroup has a box of its K-slice
     const int tiles = q / 64;
+    uint8_t order[tcd::NBOX2];
     if (!w_bf16 || plan[1] != tcd::CL || plan[2] != tcd::LT ||
         hdim != tcd::CL * tcd::HC || q % 64 || tiles > tcd::CL ||
         tcd::CL % tiles || plan[3] != tcd::CL / tiles || plan[3] > 4 ||
-        plan[4] < 1 || plan[4] > tcd::MAX_STAGES)
+        plan[4] < tcd::MIN_STAGES || plan[4] > tcd::MAX_STAGES ||
+        !tcd::box_order(plan[4], order))
       return static_cast<int>(cudaErrorInvalidValue);
     const tcd::Params p = {window, ldw, cond, ldc, bup,
                            static_cast<const __nv_bfloat16*>(w_fused), b_in,
@@ -1287,7 +1365,7 @@ extern "C" int srnn_frame_decode_planned(
                 static_cast<cudaStream_t>(stream));
 }
 
-// Clusters of the wgmma kernel the card holds at once with `stages` ring
+// Clusters of the tensor-core kernel the card holds at once with `stages` ring
 // slots (< 0: a CUDA error).
 extern "C" int srnn_frame_clusters(int hdim, int q, int f1, int stages) {
   return tcd::max_clusters<false>(tcd::smem_bytes(hdim, q, f1, stages));

@@ -1,8 +1,9 @@
 // The sm_90a primitives the hand-written Hopper kernels share: shared-
 // memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor) and their
 // tensor maps, proxy fences, cluster barriers, wgmma descriptors and
-// instructions, and release/acquire flags in device memory.  Included by
-// skinny_gemm.cuh (K2's bf16 route, K9) and seq_common.cuh (K4, K5); each
+// instructions, ldmatrix and mma.sync, and release/acquire flags in device
+// memory.  Included by skinny_gemm.cuh (K2's bf16 route, K9),
+// seq_common.cuh (K4, K5) and frame_decode.cu (K1); each
 // kernel library keeps its own copy (internal linkage, or inline with a
 // library-local cache).
 #pragma once
@@ -423,6 +424,39 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---- warp-level products (ldmatrix, mma.sync) ----
+
+// Four 8x8 matrices of 16-bit elements from shared memory: lane t gives
+// the address of row t % 8 (16 bytes) of matrix t / 8, and r[i] receives
+// matrix i's elements (row lane / 4, columns 2 (lane % 4) and + 1), or
+// with TRANS those of its transpose (rows 2 (lane % 4) and + 1, column
+// lane / 4).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t addr) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// D += A[16x16] @ B[16x8], bf16 -> f32, one warp: a the row-major A
+// fragment, (b0, b1) B's (rows 0-7 and 8-15 of column lane / 4); D's
+// d[0], d[1] are row lane / 4, columns 2 (lane % 4) and + 1, d[2], d[3]
+// the same of row lane / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- tensor maps (host) ----

@@ -6,7 +6,7 @@ Kernels (CUDA C++ under ``csrc/``, built for sm_90a by ``_build``):
 * K1 ``frame_decode`` (``csrc/frame_decode.cu``): one bottom frame, f1
   autoregressive sample-MLP steps for every lane, Gumbel-max sampling
   with supplied, shared-seed or per-lane-key noise; bf16 weights at dim
-  1024, q_levels 256 on the wgmma kernel, float32 and every other width
+  1024, q_levels 256 on the tensor-core kernel, float32 and every other width
   on the CUDA-core one (``frame_plan``).
 * K2 ``gemm_bias`` (``csrc/gemm_bias.cu``): ``round(A) @ W + bias (+ add)
   (+ the lane's conditioning row)`` for every product outside the MLP,
@@ -393,11 +393,12 @@ def lstm_gates(g, c):
 FMA_CLUSTER, FMA_LANES, FMA_THREADS = 8, 8, 256   # the CUDA-core kernel
 BOX_ROWS = 128               # one TMA box of weights: 128 rows x 64
 BOX = BOX_ROWS * 64 * 2      # columns of bf16
-K1_SMEM_MAX = 231936         # dynamic shared memory of the wgmma kernel:
+K1_SMEM_MAX = 231936         # dynamic shared memory of the tc kernel:
                              # the H100's 227 KB less 512 bytes of static
-                             # (its mbarriers)
-K1_MAX_STAGES = 28           # ring slots the kernel has mbarriers for
-# the one shape the wgmma kernel is built for (tcd::CL, LT, HC): a tile of
+                             # (its mbarriers and ring order)
+K1_MIN_STAGES = 8            # ring slots the tc kernel takes (tc_box_order)
+K1_MAX_STAGES = 24           # and has mbarriers for
+# the one shape the tc kernel is built for (tcd::CL, LT, HC): a tile of
 # 16 lanes on a cluster of 8 blocks of 128 columns, and the widths it
 # takes, those of every preset that generates
 K1_TC = (8, 16, 128)
@@ -405,12 +406,12 @@ K1_TC_WIDTHS = (1024, 256)   # (dim, q_levels)
 
 
 class FramePlan(NamedTuple):
-    """How K1 decodes a frame.  ``route``: "wgmma" (bf16 at dim 1024,
+    """How K1 decodes a frame.  ``route``: "tc" (bf16 at dim 1024,
     q_levels 256: the tensor-core kernel) or "fma" (float32 and every
     other width: the CUDA-core kernel).  A tile of ``lanes`` lanes (B
     padded up to a multiple) is one thread-block cluster of ``cluster``
     blocks; block r owns ``cols`` columns of W_h (and of h1, h2) and, on
-    the wgmma route, one 64-column tile of W_out over 1/``out_split`` of
+    the tc route, one 64-column tile of W_out over 1/``out_split`` of
     its K (on the fma route q/cluster logit columns over all of K).
     ``stages``: ring slots of one weight box (``BOX`` bytes) each, the
     boxes streamed at every step; ``smem``: dynamic shared memory bytes
@@ -439,17 +440,49 @@ def _fma_smem(hdim: int, q: int, f1: int, vec: int) -> int:
                 + lt * f1)
 
 
-def _wgmma_plan(hdim: int, q: int, f1: int) -> FramePlan:
-    """The wgmma kernel's plan at its widths (``K1_TC_WIDTHS``): as many
-    ring slots as fit beside h1, h2, the argmax partials, the noise and
-    the window (``tcd::smem_bytes``)."""
+def _tc_plan(hdim: int, q: int, f1: int) -> FramePlan:
+    """The tensor-core kernel's plan at its widths (``K1_TC_WIDTHS``): as
+    many ring slots as fit beside h1, h2, the argmax partials, the noise,
+    layer 2's K-half sums and the window (``tcd::smem_bytes``)."""
     cluster, lanes, cols = K1_TC
     tiles = q // 64
+    xsum = 8 * 32 * 8 * 4      # 8 consumer warps x 32 threads x 8 float32
     fixed = 1024 + 2 * lanes * hdim * 2 + tiles * lanes * 8 \
-        + 2 * lanes * 64 * 4 + -(-lanes * f1 * 2 // 16) * 16
+        + 2 * lanes * 64 * 4 + xsum + -(-lanes * f1 * 2 // 16) * 16
     stages = min(K1_MAX_STAGES, (K1_SMEM_MAX - fixed) // BOX)
-    return FramePlan("wgmma", cluster, lanes, cols, cluster // tiles, stages,
+    return FramePlan("tc", cluster, lanes, cols, cluster // tiles, stages,
                      fixed + stages * BOX)
+
+
+def tc_box_order(stages: int):
+    """Layer 2's 16 weight boxes of a step in the tensor-core kernel's
+    ring order for a ring of ``stages`` slots (``tcd::box_order``,
+    mirrored to be checked on the CPU): entry x is 4 g + r, the r-th box
+    (in K order) of group g = 2 K-half + tile, which the group's two warps
+    read.  Every base b < stages (boxes b, b + stages, ...) goes to one
+    group, the next in turn with room for all of them, so that the box
+    before a box in its slot was read by the same warps.  None where no
+    group has room."""
+    boxes = 16
+    per = boxes // 4
+    count, base, nxt = [0] * 4, [], 0
+    for b in range(min(stages, boxes)):
+        m = (boxes - 1 - b) // stages + 1
+        for k in range(4):
+            if count[(nxt + k) % 4] + m <= per:
+                break
+        else:
+            return None
+        g = (nxt + k) % 4
+        base.append(g)
+        count[g] += m
+        nxt = (g + 1) % 4
+    r, order = [0] * 4, []
+    for x in range(boxes):
+        g = base[x % stages]
+        order.append(4 * g + r[g])
+        r[g] += 1
+    return order
 
 
 def frame_plan(hdim: int, q: int, f1: int,
@@ -457,7 +490,7 @@ def frame_plan(hdim: int, q: int, f1: int,
     """K1's plan: a pure function of the widths, f1 and the weight type,
     never of the batch, so that a lane's samples are bit-equal whatever
     the batch and whatever lanes share its tile (a pool lane equals its
-    solo stream).  bf16 weights at ``K1_TC_WIDTHS`` take the wgmma
+    solo stream).  bf16 weights at ``K1_TC_WIDTHS`` take the tensor-core
     kernel; float32 weights, and every other bf16 width, the CUDA-core
     kernel.  Widths neither takes raise ValueError with the reason."""
     if w_dtype not in _W_DTYPES:
@@ -467,8 +500,8 @@ def frame_plan(hdim: int, q: int, f1: int,
                          "multiples of 64 (8 blocks per cluster, 16-byte "
                          f"weight loads), f1 {f1} >= 1")
     if w_dtype == torch.bfloat16 and (hdim, q) == K1_TC_WIDTHS:
-        plan = _wgmma_plan(hdim, q, f1)
-        if plan.stages >= 4:     # else f1's window leaves too small a ring
+        plan = _tc_plan(hdim, q, f1)
+        if plan.stages >= K1_MIN_STAGES:   # else too small a ring
             return plan
     smem = _fma_smem(hdim, q, f1, 8 if w_dtype == torch.bfloat16 else 4)
     if smem > K1_SMEM_MAX:
@@ -612,10 +645,10 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
         raise TypeError(f"frame_decode: weight dtype {wt}")
     if plan is None:
         plan = frame_plan(hdim, q, f1, wt)
-    elif plan.route == "wgmma" and wt != torch.bfloat16:
-        raise ValueError("frame_decode: the wgmma route takes bf16 weights")
-    if plan.route == "wgmma" and (cond.stride(0) % 4
-                                  or cond.data_ptr() % 16):
+    elif plan.route == "tc" and wt != torch.bfloat16:
+        raise ValueError("frame_decode: the tc route takes bf16 weights")
+    if plan.route == "tc" and (cond.stride(0) % 4
+                               or cond.data_ptr() % 16):
         cond = cond.contiguous()     # its rows are read 16 bytes at a time
     mode = noise_mode(temperature, noise, lane_keys)
     if mode == 1:
@@ -655,7 +688,7 @@ def frame_decode(window, cond, bup, mw, temperature, noise=None, seed=0,
 def _plan_words(plan: FramePlan):
     """A plan as the five ints ``srnn_frame_decode_planned`` reads (route,
     cluster, lanes, out_split, stages), made once per plan."""
-    return (ctypes.c_int * 5)(int(plan.route == "wgmma"), plan.cluster,
+    return (ctypes.c_int * 5)(int(plan.route == "tc"), plan.cluster,
                               plan.lanes, plan.out_split, plan.stages)
 
 

@@ -9,11 +9,11 @@ At the flagship's shape (B=128, H=1024, q=256, f1=16, bf16 weights) and
 in noise modes 2 (one seed) and 3 (per-lane keys and positions), with the
 library's trace buffer set (``srnn_frame_decode_trace``), block 0 writes
 ``clock64()`` at each phase of every step (``csrc/frame_decode.cu``,
-``trace_at`` and the wgmma kernel's ``tracing`` points).  This prints
-the mean over steps 1..14 of each phase in us (cycles over the SM clock,
-read from ``%globaltimer`` beside ``clock64`` at block 0's entry and
-exit), for the CUDA-core kernel (route "fma", K1's only kernel before the
-wgmma one) and the default plan's kernel:
+``trace_at`` and the tensor-core kernel's ``tracing`` points).  This
+prints the mean over steps 1..14 of each phase in us (cycles over the SM
+clock, read from ``%globaltimer`` beside ``clock64`` at block 0's entry
+and exit), for the CUDA-core kernel (route "fma", K1's only kernel before
+the tensor-core one) and the default plan's kernel (route "tc"):
 
 fma: ``gather`` (layer 1: f1 gathered W' rows, b_in, cond), ``h1``
 (the slice pushed into every block, the cluster barrier), ``layer2``
@@ -22,21 +22,27 @@ bias, relu), ``h2`` (push and barrier), ``layer3`` (products),
 ``layer3_sum``, ``noise``, ``argmax`` (partials pushed, the barrier),
 ``roll`` (the final argmax and the window).
 
-wgmma: ``gather`` (the newest W' row, b_in, cond -> the h1 slice, copied
+tc: ``gather`` (the newest W' row, b_in, cond -> the h1 slice, copied
 into the other blocks), ``side_cond`` and ``side_rows`` (the next step's
 cond row and rows issued), ``h1`` (until every block's slice landed),
-``layer2`` (wgmma, with ``layer2_box_wait`` the part spent waiting for
-weight boxes), ``epilogue`` (bias, relu, the h2 slice copied), ``h2``,
-``layer3`` (``layer3_box_wait``), ``partials`` (copied to the tile's
-leader), ``rows`` (the next step's row sums), ``leader`` (the partials'
-sum, b_out, the noise warp's noise, argmax, sent), ``argmax`` (until
-every partial landed), ``roll`` (the sample taken).
+``layer2`` (thread 0's warp's ``ldmatrix`` + ``mma.sync`` products: K-half
+0 of h1 @ W_h for 32 of the block's 128 columns, 4 boxes, with
+``layer2_box_wait`` the part spent waiting for them), ``epilogue`` (until
+every warp's products are done, then the two K-halves' sum through
+shared memory, bias, relu, the h2 slice copied), ``h2``, ``layer3``
+(the warp's products: its warpgroup's half of the block's K-slice of
+W_out for 16 of the tile's 64 columns, with ``layer3_box_wait``),
+``partials`` (until the warpgroup is done, copied to the tile's leader),
+``rows`` (the next step's row sums), ``leader`` (the partials' sum,
+b_out, the noise warp's noise, argmax, sent), ``argmax`` (until every
+partial landed), ``roll`` (the sample taken).
 
 Each trace also gives the grid's makespan against the mean block's time
 (``waves``: above 1 where some blocks waited for others to leave).
 Then the device us per launch (torch.profiler, mean of ``REPS``) of each
-route and, with ``--sweep``, of the default plan with shallower rings,
-each checked against the plain version by rescoring.  ``--root DIR`` also times ``DIR``'s K1 (a
+route and, with ``--sweep``, of the default plan with shallower rings
+(down to ``decode.K1_MIN_STAGES`` slots), each checked against the plain
+version by rescoring.  ``--root DIR`` also times ``DIR``'s K1 (a
 checkout holding ``samplernn_pase_tpu_torch``, e.g. a ``git archive`` of
 the parent under ``build/``) in a subprocess on the same inputs, in the
 order root, this tree, this tree, root.  The last line is one JSON
@@ -61,11 +67,11 @@ SPANS = {
             "ksplit": (3, 4), "h2": (4, 5), "layer3": (5, 10),
             "layer3_sum": (10, 6), "noise": (6, 7), "argmax": (7, 8),
             "roll": (8, 9)},
-    "wgmma": {"gather": (0, 1), "side_cond": (1, 11), "side_rows": (11, 12),
-              "h1": (12, 2),
-              "layer2": (2, 3), "epilogue": (3, 4), "h2": (4, 5),
-              "layer3": (5, 10), "partials": (10, 6), "rows": (6, 13),
-              "leader": (13, 7), "argmax": (7, 8), "roll": (8, 9)},
+    "tc": {"gather": (0, 1), "side_cond": (1, 11), "side_rows": (11, 12),
+           "h1": (12, 2), "layer2": (2, 3), "epilogue": (3, 4),
+           "h2": (4, 5), "layer3": (5, 10), "partials": (10, 6),
+           "rows": (6, 13), "leader": (13, 7), "argmax": (7, 8),
+           "roll": (8, 9)},
 }
 
 
@@ -152,7 +158,7 @@ def phases(tr, route: str) -> dict:
     out = {k: mean(lambda s, a=a, b=b: tr[s * 16 + b] - tr[s * 16 + a])
            for k, (a, b) in SPANS[route].items()}
     out["step"] = mean(lambda s: tr[(s + 1) * 16] - tr[s * 16])
-    if route == "wgmma":   # cycles thread 0 waited for weight boxes
+    if route == "tc":   # cycles thread 0 waited for weight boxes
         out["layer2_box_wait"] = mean(lambda s: tr[s * 16 + 14])
         out["layer3_box_wait"] = mean(lambda s: tr[s * 16 + 15])
     ran = [k for k in range(MAX_BLOCKS) if tr[base + 4 + 2 * k]]
@@ -175,7 +181,7 @@ def agreement(torch, kdec, args, mode_kw, plan) -> float:
 
 
 def clusters(_build, plan) -> int:
-    """Clusters of the wgmma kernel the card holds at once under
+    """Clusters of the tensor-core kernel the card holds at once under
     ``plan``."""
     fn = _build.function("frame_decode", "srnn_frame_clusters",
                          [ctypes.c_int] * 4)
@@ -229,8 +235,8 @@ def main(argv=None) -> int:
                          H // kdec.FMA_CLUSTER, 1, 0,
                          kdec._fma_smem(H, Q, F1, 8))
     routes = {"fma": fma}
-    if default.route == "wgmma":
-        routes["wgmma"] = default
+    if default.route == "tc":
+        routes["tc"] = default
     if args.root:
         result["root_us"] = [root_times(args.root)]
         print(f"root {args.root}: K1 us per launch {result['root_us'][0]}",
@@ -240,9 +246,9 @@ def main(argv=None) -> int:
         print(f"{name} plan {tuple(plan)}: K1 us per launch "
               f"{result['us'][name]}", flush=True)
     if args.root:
-        result["us"]["wgmma_again"] = time_modes(torch, kdec, default)
+        result["us"]["tc_again"] = time_modes(torch, kdec, default)
         result["root_us"].append(root_times(args.root))
-        print(f"again: this tree {result['us']['wgmma_again']}, root "
+        print(f"again: this tree {result['us']['tc_again']}, root "
               f"{result['root_us'][1]}", flush=True)
     for name, plan in routes.items():
         result["trace"][name] = {}
@@ -256,7 +262,7 @@ def main(argv=None) -> int:
     if args.sweep:
         plans = [default._replace(stages=st, smem=default.smem - (
             default.stages - st) * kdec.BOX)
-            for st in range(4, default.stages, 2)]
+            for st in range(kdec.K1_MIN_STAGES, default.stages)]
         for plan in plans:
             fit = clusters(_build, plan)
             row = {"plan": list(plan), "clusters_at_once": fit,
@@ -265,7 +271,7 @@ def main(argv=None) -> int:
                              for m, kw in modes.items()}}
             tr = traced(torch, kdec, _build, lambda plan=plan:
                         kdec.frame_decode(*k1args, **modes[2], plan=plan))
-            row["trace_mode2"] = phases(tr, "wgmma")
+            row["trace_mode2"] = phases(tr, "tc")
             result["sweep"].append(row)
             print(f"  plan {tuple(plan)}: {fit} clusters at once, us per "
                   f"launch {row['us']}, rescoring {row['agree']}, step "

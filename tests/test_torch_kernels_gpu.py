@@ -310,10 +310,10 @@ def test_lstm_generate_full_matches_plain_f32(cuda, temp):
         torch.testing.assert_close(a, c, atol=1e-5, rtol=0)
 
 
-# K1's wgmma kernel at the flagship's shape (B=128, dim 1024, q 256, f1 16,
-# bf16): rescoring (the plain version, fed the kernel's samples, picks the
-# same level) >= 0.99, the reference's bar for its bf16 kernels; the
-# window is strided as the generation loop passes it.
+# K1's tensor-core kernel at the flagship's shape (B=128, dim 1024, q 256,
+# f1 16, bf16): rescoring (the plain version, fed the kernel's samples,
+# picks the same level) >= 0.99, the reference's bar for its bf16 kernels;
+# the window is strided as the generation loop passes it.
 def _k1_flagship(dev, b=128):
     from samplernn_pase_tpu_torch.scripts import frame_trace as ft
     args, modes = ft.inputs(torch)
@@ -329,11 +329,11 @@ def _k1_flagship(dev, b=128):
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
-def test_frame_decode_wgmma_rescores_at_flagship_shape(cuda, mode):
+def test_frame_decode_tc_rescores_at_flagship_shape(cuda, mode):
     args, kws = _k1_flagship(cuda)
     mw = args[3]
     plan = kdec.frame_plan(1024, 256, 16, torch.bfloat16)
-    assert plan.route == "wgmma"
+    assert plan.route == "tc"
     kdec.reset_launches()
     got = kdec.frame_decode(*args, **kws[mode])
     assert kdec.LAUNCHES["frame_decode"] == 1
@@ -344,7 +344,7 @@ def test_frame_decode_wgmma_rescores_at_flagship_shape(cuda, mode):
 
 
 @pytest.mark.parametrize("mode", [0, 3])
-def test_frame_decode_wgmma_rows_independent_of_batch(cuda, mode):
+def test_frame_decode_tc_rows_independent_of_batch(cuda, mode):
     """Lane b's samples are bit-equal in B = 1, 8, 37 and 128 launches
     with the same keys and positions (greedy, and per-lane keys): the plan
     never reads B, and a lane's products do not depend on who shares its
@@ -386,34 +386,71 @@ def _k1_inputs(dev, hdim, q, f1, b, mode):
     return (window, cond, bup, mw), kw
 
 
-def _k1_rescores_and_lane_5_alone(args, kw):
+def _k1_rescores_and_lane_5_alone(args, kw, plan=None):
     window, cond, bup, mw = args
-    got = kdec.frame_decode(window, cond, bup, mw, **kw)
+    got = kdec.frame_decode(window, cond, bup, mw, **kw, plan=plan)
     again = kdec.frame_decode_plain(window, cond, bup, mw, **kw,
                                     forced=got)
     assert (again == got).float().mean().item() >= 0.99
     one = kdec.frame_decode(window[5:6], cond[5:6], bup, mw, **{
         k: (v[5:6] if k in ("lane_keys", "lane_pos") else v)
-        for k, v in kw.items()})
+        for k, v in kw.items()}, plan=plan)
     torch.testing.assert_close(one[0], got[5], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("f1", [1, 4])
 @pytest.mark.parametrize("mode", [0, 3])
-def test_frame_decode_wgmma_other_plans(cuda, f1, mode):
-    """The wgmma kernel at f1 = 1 and 4 (its ring and window at other
-    sizes): rescoring >= 0.99 at B=37 and lane 5 alone equal to lane 5 in
-    the batch."""
-    assert kdec.frame_plan(1024, 256, f1, torch.bfloat16).route == "wgmma"
-    _k1_rescores_and_lane_5_alone(*_k1_inputs(cuda, 1024, 256, f1, 37,
-                                              mode))
+def test_frame_decode_tc_other_plans(cuda, f1, mode):
+    """The tensor-core kernel at f1 = 1 and 4 (its ring and window at
+    other sizes), at every ring depth from 8 slots to the plan's:
+    rescoring >= 0.99 at B=37 and lane 5 alone equal to lane 5 in the
+    batch."""
+    plan = kdec.frame_plan(1024, 256, f1, torch.bfloat16)
+    assert plan.route == "tc" and plan.stages >= 8
+    args, kw = _k1_inputs(cuda, 1024, 256, f1, 37, mode)
+    for stages in range(8, plan.stages + 1):
+        _k1_rescores_and_lane_5_alone(args, kw, plan._replace(
+            stages=stages, smem=plan.smem - (plan.stages - stages) * kdec.BOX))
+
+
+def test_frame_decode_tc_refuses_shallow_rings(cuda):
+    """A ring of fewer than 8 slots is refused at launch (``tc_box_order``
+    has no order for some: a warp would wait on a slot a phase behind its
+    box and read it before it lands)."""
+    args, kws = _k1_flagship(cuda)
+    plan = kdec.frame_plan(1024, 256, 16, torch.bfloat16)
+    for stages in (4, 6, 7):
+        bad = plan._replace(stages=stages, smem=plan.smem + (
+            stages - plan.stages) * kdec.BOX)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kdec.frame_decode(*args, **kws[0], plan=bad)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+def test_frame_decode_tc_traced_equals_untraced(cuda, mode):
+    """The traced instantiation (launched while a trace buffer is set)
+    draws the same samples, bit for bit, as the untraced one at the
+    flagship's shape, and writes its phase clocks."""
+    from samplernn_pase_tpu_torch.ops.kernels import _build
+    from samplernn_pase_tpu_torch.scripts import frame_trace as ft
+    args, kws = _k1_flagship(cuda)
+    assert kdec.frame_plan(1024, 256, 16, torch.bfloat16).route == "tc"
+    want = kdec.frame_decode(*args, **kws[mode])
+    got = []
+    tr = ft.traced(torch, kdec, _build, lambda: got.append(
+        kdec.frame_decode(*args, **kws[mode])))
+    torch.testing.assert_close(got[0], want, rtol=0, atol=0)
+    assert all(tr[s * 16 + 9] > tr[s * 16] > 0 for s in range(ft.F1))
+    torch.testing.assert_close(kdec.frame_decode(*args, **kws[mode]), want,
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hdim,q", [(512, 256), (2048, 256), (1024, 512)])
 @pytest.mark.parametrize("mode", [0, 3])
 def test_frame_decode_other_bf16_widths_take_the_cuda_core_kernel(
         cuda, hdim, q, mode):
-    """bf16 widths the wgmma kernel is not built for run the CUDA-core
+    """bf16 widths the tensor-core kernel is not built for run the CUDA-core
     kernel by the plan, and still rescore >= 0.99 with lane 5 alone equal
     to lane 5 in the batch."""
     assert kdec.frame_plan(hdim, q, 16, torch.bfloat16).route == "fma"
@@ -946,11 +983,11 @@ def _seed_tensor(seed, dev):
 SEEDS = (5, 2 ** 63 + 12345, 2 ** 64 - 1)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "fma_bf16", "fma_f32"])
+@pytest.mark.parametrize("route", ["tc", "fma_bf16", "fma_f32"])
 def test_frame_decode_device_seed_equals_host_seed(cuda, route):
     """Mode 2 with the seed read from device memory draws the same noise,
     bit for bit, as the seed passed by value, on both kernels."""
-    if route == "wgmma":
+    if route == "tc":
         args, kws = _k1_flagship(cuda)
         kw = dict(kws[2], lane_pos=torch.arange(128, device=cuda) * 5)
     elif route == "fma_bf16":
@@ -969,7 +1006,7 @@ def test_frame_decode_device_seed_equals_host_seed(cuda, route):
     mw = args[3]
     assert (kdec.frame_plan(mw["b_in"].shape[0], mw["b_out"].shape[0],
                             args[0].shape[1], mw["w_h"].dtype).route
-            == ("wgmma" if route == "wgmma" else "fma"))
+            == ("tc" if route == "tc" else "fma"))
     host = []
     for seed in SEEDS:
         want = kdec.frame_decode(*args, **dict(kw, seed=seed))
