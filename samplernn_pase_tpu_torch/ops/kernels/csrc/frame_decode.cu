@@ -1333,24 +1333,8 @@ int decode(const int32_t* window, int64_t ldw, const float* cond,
 
 }  // namespace
 
-// One bottom frame on the CUDA-core kernel.
-extern "C" int srnn_frame_decode(
-    const int32_t* window, int64_t ldw, const float* cond, int64_t ldc,
-    const float* bup, const void* w_fused, const float* b_in,
-    const void* w_h, const float* b_h, const void* w_out, const float* b_out,
-    const float* noise, int noise_mode, float temperature, uint64_t seed,
-    int64_t pos0, const uint32_t* lane_keys, const int64_t* lane_pos,
-    int32_t* out, int64_t ldo, int b, int f1, int hdim, int q, int w_bf16,
-    void* stream) {
-  const int plan[5] = {0, CL, LT, 1, 0};
-  return decode(window, ldw, cond, ldc, bup, w_fused, b_in, w_h, b_h, w_out,
-                b_out, noise, noise_mode, temperature, seed, nullptr, pos0,
-                lane_keys, lane_pos, out, ldo, b, f1, hdim, q, w_bf16, plan,
-                static_cast<cudaStream_t>(stream));
-}
-
-// The same under a plan (route, cluster, lanes, out_split, stages), with
-// mode 2's seed read from seed_ptr where that is not null.
+// One bottom frame under a plan (route, cluster, lanes, out_split, stages),
+// with mode 2's seed read from seed_ptr where that is not null.
 extern "C" int srnn_frame_decode_planned(
     const int32_t* window, int64_t ldw, const float* cond, int64_t ldc,
     const float* bup, const void* w_fused, const float* b_in,

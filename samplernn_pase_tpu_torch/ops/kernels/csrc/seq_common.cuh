@@ -3,9 +3,10 @@
 // products (bf16: a TMA-fed wgmma tile GEMM; float32: FMA tiles), the bf16
 // serial chains' engine (namespace tc: TMA ring, readiness flags, wgmma),
 // the float32 chains' staged loads, and the cooperative launch of a chain
-// after its residency check.  Each kernel library includes this header
-// once; everything here has internal linkage, so the two libraries keep
-// their own copies.
+// after its residency check; the chains themselves, written once over a
+// cell type, are in seq_chain.cuh.  Each kernel library includes this
+// header once; everything here has internal linkage, so the two libraries
+// keep their own copies.
 //
 // A serial chain runs the whole sequence in one cooperative launch.  bf16
 // (namespace tc below): blocks of 8 or 16 hidden units and a share of the
@@ -726,9 +727,9 @@ __device__ __forceinline__ void product(float (&acc)[NC / 2], int& it,
 // A consumer thread's place in the accumulator layout of m64nN: rows
 // row(0) and row(1) of its warpgroup's 64, and for each 8-column group i
 // the columns 8i + lane2 and 8i + lane2 + 1 (acc[4i + 2 rs + e]).
-struct Cell {
+struct Place {
   int wg, r, lane2;
-  __device__ Cell()
+  __device__ Place()
       : wg(threadIdx.x / 128),
         r(threadIdx.x % 128 / 32 * 16 + threadIdx.x % 32 / 4),
         lane2(2 * (threadIdx.x % 4)) {}

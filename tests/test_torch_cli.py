@@ -25,17 +25,13 @@ from samplernn_pase_tpu_torch.ops.audio_io import read_wav, write_wav
 from samplernn_pase_tpu_torch.ops.kernels.noise import int_key
 from samplernn_pase_tpu_torch.utils import checked
 
+from torch_threads import one_thread  # noqa: F401 (a fixture)
+
 TINY = ["--frame_sizes", "4", "2", "--dim", "16", "--embed_dim", "8"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the models are tiny, and under ``-n 6`` a
-    thread per core in every worker oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# one intra-op thread in this process (torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def run(*argv):

@@ -33,6 +33,8 @@ from samplernn_pase_tpu_torch.ops.audio_io import write_wav
 from samplernn_pase_tpu_torch.ops.kernels.noise import int_key
 from samplernn_pase_tpu_torch.train.checkpoint import CheckpointManager
 
+from torch_threads import one_thread  # noqa: F401 (a fixture)
+
 MODEL = dict(frame_sizes=(4, 2), dim=32, embed_dim=8,
              compute_dtype="float32")
 PASE = dict(sinc_filters=8, sinc_kernel=33, blocks=((8, 5, 4), (12, 5, 4)),
@@ -40,14 +42,8 @@ PASE = dict(sinc_filters=8, sinc_kernel=33, blocks=((8, 5, 4), (12, 5, 4)),
 TRAIN = dict(batch_size=2, seq_len=256, epochs=1)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the models are tiny, and under ``-n 6`` a
-    thread per core in every worker oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# one intra-op thread in this process (torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _main(which):

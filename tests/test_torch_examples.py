@@ -16,17 +16,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (a fixture)
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = "samplernn_pase_tpu_torch"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for the smoke runs in this process too."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# one intra-op thread in this process (torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _run(module, *args, timeout=300):

@@ -32,6 +32,8 @@ from samplernn_pase_tpu_torch.parallel.launch import run_ranks
 from samplernn_pase_tpu_torch.serve import StreamPool, run_jobs
 from samplernn_pase_tpu_torch.train import trainer as tr
 
+from torch_threads import one_thread  # noqa: F401 (a fixture)
+
 BASE = dict(frame_sizes=(4, 2), dim=16, embed_dim=8, compute_dtype="float32")
 COND = dict(BASE, cond_dim=6, cond_rate=8, n_speakers=4)
 PASE = dict(sinc_filters=8, sinc_kernel=33, blocks=((8, 5, 4), (12, 5, 4)),
@@ -284,15 +286,9 @@ TP_STEPS = {"tp": (2, BASE, False, 1.0), "tp_cond": (4, COND, False, 1.0),
             "tp_clipped": (9, dict(COND, weight_norm=True), False, 1e-3)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread in this process (the spawned ranks take one
-    each too): the models are tiny, and under ``-n 6`` a thread per core
-    in every worker oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# one intra-op thread in this process (torch_threads.py); the spawned
+# ranks take one each too
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,8 @@ from samplernn_pase_tpu_torch.train import metrics as tmetrics
 from samplernn_pase_tpu_torch.train import trainer as ttr
 from samplernn_pase_tpu_torch.tree import tree_leaves
 
+from torch_threads import one_thread  # noqa: F401 (a fixture)
+
 TOL = 1e-5
 BASE = dict(frame_sizes=(4, 2), dim=16, embed_dim=8, compute_dtype="float32")
 COND = dict(cond_dim=4, cond_rate=8, n_speakers=2)
@@ -418,6 +420,8 @@ def test_mask_passed_only_with_padding_and_profile(tmp_path):
     assert t.profile.wall_s > 0
 
 
+# the fixture holds to the file's end: the file's last test takes it
+@pytest.mark.usefixtures("one_thread")
 def test_quality_smoke_tiny():
     """The port's quality smoke, --tiny on the CPU: the model fits the
     two-speaker sine corpus and each primed continuation keeps its
