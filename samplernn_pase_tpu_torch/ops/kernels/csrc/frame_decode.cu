@@ -53,6 +53,12 @@
 //   layer and after the per-block argmax partials.  Needs dim and
 //   q % (8 * CL) == 0.  At B=128 that is 16 clusters of 8, one more
 //   than the card holds at once: two waves (scripts/frame_trace.py).
+//
+// Both kernels run griddepcontrol.launch_dependents once their cluster is
+// up: the GRU tiers' next recurrent products (megagen._frames), launched
+// after K1 as programmatic dependents, then take the SMs K1 leaves idle
+// (64 of 132 at B=128) and never the ones K1 needs.  They read nothing K1
+// writes, so they never wait on its grid.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -280,6 +286,8 @@ frame_decode_kernel(
     win[e] = window[lane * ldw + e % f1];
   }
   cluster.sync();  // every block of the cluster runs before any DSMEM access
+  srnn::sm90::launch_dependents();   // resident: a programmatic dependent
+                                     // may start
 
   for (int i = 0; i < f1; ++i) {
     trace_at(tr, i, 0);
@@ -716,6 +724,7 @@ frame_decode_tc_kernel(const __grid_constant__ Params p,
   }
   cluster_arrive();   // every block's mbarriers exist before any store
   cluster_wait();
+  launch_dependents();   // resident: a programmatic dependent may start
 
   if (warp == CONSUMERS / 32) {
     // ---- producer: the boxes of every step, in consumption order; lane

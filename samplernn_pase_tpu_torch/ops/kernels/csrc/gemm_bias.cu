@@ -35,7 +35,10 @@
 // ops/kernels/decode.py:gemm_plan.  float32 weights (the exact path the
 // tests hold against the reference) take a plain tiled FMA product.  Rows
 // of A, `add` and C take a leading dimension so that strided views of the
-// generation buffer need no copy.
+// generation buffer need no copy.  With `pdl` either route is launched as a
+// programmatic dependent of the kernel before it (K1 there, which triggers
+// once resident): the GRU tiers' next h @ W_hh then runs beside K1 on the
+// SMs K1 leaves idle (ops/kernels/megagen.py).
 
 #include <cmath>
 
@@ -215,18 +218,27 @@ bool aligned16(const void* p) {
 }
 
 template <typename WT>
-void launch(const void* a, int a_levels, int64_t lda, const void* w,
-            const float* bias, const float* add, int64_t ldadd,
-            const ExtCond& ext, float* c, int64_t ldc, int m, int n, int k,
-            float q_half, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+int launch(const void* a, int a_levels, int64_t lda, const void* w,
+           const float* bias, const float* add, int64_t ldadd,
+           const ExtCond& ext, float* c, int64_t ldc, int m, int n, int k,
+           float q_half, bool pdl, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + BN - 1) / BN, (m + BM - 1) / BM);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
   const WT* wt = static_cast<const WT*>(w);
-  if (a_levels)
-    gemm_bias_kernel<WT, true><<<grid, THREADS, 0, stream>>>(
-        a, lda, wt, bias, add, ldadd, ext, c, ldc, m, n, k, q_half);
-  else
-    gemm_bias_kernel<WT, false><<<grid, THREADS, 0, stream>>>(
-        a, lda, wt, bias, add, ldadd, ext, c, ldc, m, n, k, q_half);
+  return static_cast<int>(
+      a_levels ? cudaLaunchKernelEx(&cfg, gemm_bias_kernel<WT, true>, a, lda,
+                                    wt, bias, add, ldadd, ext, c, ldc, m, n,
+                                    k, q_half)
+               : cudaLaunchKernelEx(&cfg, gemm_bias_kernel<WT, false>, a, lda,
+                                    wt, bias, add, ldadd, ext, c, ldc, m, n,
+                                    k, q_half));
 }
 
 }  // namespace
@@ -239,14 +251,13 @@ extern "C" int srnn_gemm_bias(const void* a, int a_levels, int64_t lda,
                               int64_t ext_ld_lane, int ext_rows,
                               const int32_t* cond_phase, int pos,
                               int cond_rate, int split, int bn, int groups,
-                              void* stream) {
+                              int pdl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ExtCond e{ext, ext_ld_row, ext_ld_lane, cond_phase, ext_rows, pos,
                   cond_rate};
   if (!w_bf16) {
-    launch<float>(a, a_levels, lda, w, bias, add, ldadd, e, c, ldc, m, n, k,
-                  q_half, s);
-    return static_cast<int>(cudaGetLastError());
+    return launch<float>(a, a_levels, lda, w, bias, add, ldadd, e, c, ldc, m,
+                         n, k, q_half, pdl != 0, s);
   }
   namespace sk = srnn::skinny;
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
@@ -264,8 +275,8 @@ extern "C" int srnn_gemm_bias(const void* a, int a_levels, int64_t lda,
             (!add || (ldadd % 4 == 0 && aligned16(add))) &&
             (!ext || (ext_ld_row % 4 == 0 && ext_ld_lane % 4 == 0 &&
                       aligned16(ext)));
-  return a_levels ? sk::run<sk::A_LEVELS>(p, bn, epi, s)
-                  : sk::run<sk::A_F32>(p, bn, epi, s);
+  return a_levels ? sk::run<sk::A_LEVELS>(p, bn, epi, s, pdl != 0)
+                  : sk::run<sk::A_F32>(p, bn, epi, s, pdl != 0);
 }
 
 // Clusters of `split` CTAs the card holds at once for K2's float32-A

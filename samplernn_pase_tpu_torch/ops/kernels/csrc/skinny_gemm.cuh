@@ -473,10 +473,13 @@ inline bool w_map(CUtensorMap* out, const void* w, int rows, int cols) {
 // Launch one product: one kernel, clusters of p.split CTAs (a plain
 // launch for split 1).  W goes through TMA where its rows are 16-byte
 // multiples and aligned and k_split falls on a ring stage, else through
-// plain loads.  Returns the CUDA error code (cudaErrorInvalidValue for a
-// plan the core cannot run).
+// plain loads.  `pdl`: launched with programmatic stream serialization,
+// so it may start once the kernel before it on the stream has triggered
+// (frame_decode.cu); it must then read nothing that kernel writes.
+// Returns the CUDA error code (cudaErrorInvalidValue for a plan the core
+// cannot run).
 template <int BN, int AMODE, class Epi>
-int launch(Problem p, const Epi& epi, cudaStream_t stream) {
+int launch(Problem p, const Epi& epi, cudaStream_t stream, bool pdl) {
   const int k16 = (p.k + 15) / 16, n_tiles = (p.n + BN - 1) / BN;
   const int smem = smem_bytes<BN>();
   if (p.m < 1 || p.n < 1 || p.k < 1 || p.split < 1 || p.split > 8 ||
@@ -517,13 +520,22 @@ int launch(Problem p, const Epi& epi, cudaStream_t stream) {
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  int n_attrs = 0;
+  if (p.split > 1) {
+    attr[n_attrs].id = cudaLaunchAttributeClusterDimension;
+    attr[n_attrs].val.clusterDim.x = p.split;
+    attr[n_attrs].val.clusterDim.y = 1;
+    attr[n_attrs].val.clusterDim.z = 1;
+    ++n_attrs;
+  }
+  if (pdl) {
+    attr[n_attrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attrs].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attrs;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  cfg.numAttrs = n_attrs;
   return static_cast<int>(
       cudaLaunchKernelEx(&cfg, kernel, p, epi, map0, map1, amap));
 }
@@ -555,9 +567,10 @@ int max_clusters(int split) {
 
 // Dispatch on the plan's tile width.
 template <int AMODE, class Epi>
-int run(const Problem& p, int bn, const Epi& epi, cudaStream_t stream) {
-  if (bn == 64) return launch<64, AMODE>(p, epi, stream);
-  if (bn == 128) return launch<128, AMODE>(p, epi, stream);
+int run(const Problem& p, int bn, const Epi& epi, cudaStream_t stream,
+        bool pdl = false) {
+  if (bn == 64) return launch<64, AMODE>(p, epi, stream, pdl);
+  if (bn == 128) return launch<128, AMODE>(p, epi, stream, pdl);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,7 @@
 // The sm_90a primitives the hand-written Hopper kernels share: shared-
 // memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor) and their
-// tensor maps, proxy fences, cluster barriers, wgmma descriptors and
+// tensor maps, proxy fences, cluster barriers, the programmatic-launch
+// trigger, wgmma descriptors and
 // instructions, ldmatrix and mma.sync, and release/acquire flags in device
 // memory.  Included by skinny_gemm.cuh (K2's bf16 route, K9),
 // seq_common.cuh (K4, K5) and frame_decode.cu (K1); each
@@ -88,6 +89,13 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: the grid launched next on the stream with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of this grid has run this (or exited).  No effect without one.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- flags in device memory (one writer, any readers) ----

@@ -68,7 +68,7 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _SIGNATURES = {
     "gemm_bias": ("srnn_gemm_bias",
                   [_P, _I, _I64, _P, _I, _P, _P, _I64, _P, _I64, _I, _I, _I,
-                   _F, _P, _I64, _I64, _I, _P, _I, _I, _I, _I, _I, _P]),
+                   _F, _P, _I64, _I64, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gru_gates": ("srnn_gru_gates",
                   [_P, _I64, _P, _I64, _P, _I64, _P, _I, _I, _P]),
     "lstm_gates": ("srnn_lstm_gates",
@@ -262,7 +262,7 @@ def gemm_bias_plain(a, w, bias=None, add=None, levels_q=0, ext=None,
 
 
 def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
-              pos=0, cond_rate=0, plan=None):
+              pos=0, cond_rate=0, plan=None, out=None, pdl=False):
     """K2: ``round(A) @ W + bias (+ add) (+ ext row)`` -> float32 ``[M, N]``.
 
     a [M, K] float32 (or int32 levels when ``levels_q`` is the level
@@ -274,10 +274,18 @@ def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
     ``min(that + 1, R - 1)`` when ``cphase[m] + pos % cond_rate >=
     cond_rate`` (``megagen.py:211-219``).  ``plan``: the core's plan for
     bf16 weights, ``gemm_plan(K, N)`` when None (another is for timing
-    sweeps: rows stay bit-equal across batch sizes under any one plan)."""
-    if _on_cpu(a, w, bias, add, ext, cphase):
-        return gemm_bias_plain(a, w, bias, add, levels_q, ext, cphase, pos,
-                               cond_rate)
+    sweeps: rows stay bit-equal across batch sizes under any one plan).
+    ``out``: a contiguous float32 [M, N] tensor to write into, else
+    allocated.  ``pdl``: launch as a programmatic dependent of the kernel
+    before it on the stream (K1, which lets it start once resident, or
+    another product so launched), so that it runs beside K1; it must read
+    nothing that kernel writes, and whatever reads ``out`` must wait on
+    K1 and on this launch itself (``megagen.beside_k1``).  No effect on
+    the CPU."""
+    if _on_cpu(a, w, bias, add, ext, cphase, out):
+        c = gemm_bias_plain(a, w, bias, add, levels_q, ext, cphase, pos,
+                            cond_rate)
+        return c if out is None else out.copy_(c)
     m, k = a.shape
     n = w.shape[1]
     _check(a, "a", (torch.int32,) if levels_q else (torch.float32,),
@@ -300,12 +308,16 @@ def gemm_bias(a, w, bias=None, add=None, levels_q=0, ext=None, cphase=None,
                     ext.shape[0], cphase.data_ptr(), int(pos), int(cond_rate))
     if plan is None or w.dtype != torch.bfloat16:
         plan = gemm_plan(k, n, w.dtype)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if out is None:
+        c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    else:
+        _check(out, "out", (torch.float32,), (m, n))
+        c = out
     _launch("gemm_bias", a.data_ptr(), int(bool(levels_q)), a.stride(0),
             w.data_ptr(), int(plan is not None), _ptr(bias),
             _ptr(add), 0 if add is None else add.stride(0), c.data_ptr(), n,
             m, n, k, (levels_q or 2) / 2.0, *ext_args,
-            *(plan[:3] if plan else (0, 0, 0)), _stream(a),
+            *(plan[:3] if plan else (0, 0, 0)), int(pdl), _stream(a),
             mode="cond" if ext is not None else None)
     return c
 
@@ -802,7 +814,7 @@ def model_state(state):
 
 
 def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS,
-              cond: CondRows | None = None, pos: int = 0):
+              cond: CondRows | None = None, pos: int = 0, hg=None):
     """One tier step in kernels: K2 (levels -> dequantized frame @ w_in +
     b_in + upper, + the lane's conditioning row), then per stacked layer
     K2 (the input gates ``xg`` of the tier input or of the layer below's
@@ -812,17 +824,23 @@ def tier_cell(tw, frame, upper, state, q_levels, ops: Ops = KERNELS,
     [B, H] float32 or None; state: one ``(h,)`` (GRU) or ``(h, c)`` (LSTM)
     per layer, from ``decode_state``; cond: this tier's ``CondRows`` or
     None, read at ``pos``, the frame's first-sample offset within the
-    call -> the new state, same form."""
+    call; hg: for a GRU tier, each layer's ``h @ w_hh + b_hh`` of this
+    ``state`` [B, 3H] float32, computed ahead by the same K2 (the whole
+    generation loop runs it beside K1: ``megagen._frames``), or None to
+    compute it here -> the new state, same form.  Either way each K3
+    reads the same bits."""
     kw = {} if cond is None else dict(ext=cond.ext, cphase=cond.phase,
                                       pos=pos, cond_rate=cond.rate)
     x = ops.gemm(frame, tw["w_in"], tw["b_in"], upper, levels_q=q_levels,
                  **kw)
     new = []
-    for lw, s in zip(tw["layers"], state, strict=True):
+    for i, (lw, s) in enumerate(zip(tw["layers"], state, strict=True)):
         xg = ops.gemm(x, lw["w_ih"], lw["b_ih"])
         h = s[0]
         if len(s) == 1:
-            s = (ops.gru_gates(xg, ops.gemm(h, lw["w_hh"], lw["b_hh"]), h),)
+            g = (ops.gemm(h, lw["w_hh"], lw["b_hh"]) if hg is None
+                 else hg[i])
+            s = (ops.gru_gates(xg, g, h),)
         else:
             s = ops.lstm_gates(ops.gemm(h, lw["w_hh"], lw["b_hh"], xg), s[1])
         new.append(s)

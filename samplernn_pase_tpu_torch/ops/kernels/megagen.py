@@ -16,10 +16,12 @@ over; a single persistent kernel is later work.  Here the loop over top
 frames runs on the host and launches the kernels of ``decode.py``:
 
 * per tier-k step (k > 0): K2 (tier input + upper, + the lane's
-  conditioning row), then per stacked layer K2 x2 (gates) and K3 (GRU) or
-  K6 (LSTM), then K2 (upsample of the last layer's h, bias added);
-* per bottom frame: ``decode.tier_frame``, the counterpart of
-  ``fused_tier_frame_decode``: the same cell, K2 (upsample rows, ``b_up``
+  conditioning row), then per stacked layer K2 (input gates ``xg``), K2
+  (recurrent gates ``hg``, on the chain or beside K1, below) and K3 (GRU),
+  or K2 (``xg``), K2 (``hg`` with ``xg`` added) and K6 (LSTM), then K2
+  (upsample of the last layer's h, bias added);
+* per bottom frame: the counterpart of ``fused_tier_frame_decode``
+  (``decode.tier_frame``): the same cell, K2 (upsample rows, ``b_up``
   added per row by K1), then K1 for the f1 samples.
 
 A tier step takes 2 + 3 * n_rnn launches and a bottom frame one more.  A
@@ -27,6 +29,47 @@ flagship top frame (2-tier GRU, frame_sizes (16, 4)) takes 29 launches at
 n_rnn=1 and 44 at n_rnn=2 (8 for the top tier, 4 x 9 for the bottom
 frames); config 2's (3-tier LSTM, (16, 4, 4)) 121 at n_rnn=1 (5 for tier
 2, 4 x 5 for tier 1 and 16 x 6 for the bottom frames) and 184 at n_rnn=2.
+
+**The GRU's ``hg`` beside K1** (``offchain``: K2 on CUDA tensors).  A GRU
+layer's ``hg = h @ w_hh + b_hh`` for its next step needs only the ``h``
+its step left, yet on the chain it waits for the next step's tier input
+and ``xg``.  K1 holds 8 clusters of 8, 64 of the 132 SMs at B=128, for
+about 180 us a bottom frame.  So each GRU tier's next ``hg`` (every
+layer) is launched right after the first K1 that follows its step, and
+the next step's K3 reads it: the bottom tier's beside each K1, the upper
+tiers' beside the first K1 under them.  Each is the same K2 launch with
+the same plan, so levels and states are bit-equal to the chain's, and
+the launch counts do not change.  The rules that keep it right and fast:
+
+* K1 residency: K1 launches at most the clusters the card holds at once,
+  each walking its tiles, so a K2 that took SMs first would serialise
+  K1's tiles.  K1 runs ``griddepcontrol.launch_dependents`` once its
+  clusters are up, and each product is launched as a programmatic
+  dependent (K2's ``pdl``) of the kernel before it, K1 or the product
+  before (``beside_k1``): it starts once K1 is resident or the product
+  before has left its SMs, and none waits on K1's grid (none reads what
+  K1 writes).  A programmatic dependent completes only once the kernel
+  before it has (a product beside K1 ends with K1), so a product launched
+  in plain order after one would wait for all of K1.
+* The join: an event recorded after K1 and after each product, all
+  waited on after the last, so everything launched later waits on K1
+  and on each product itself, not on what a programmatic edge implies (a
+  capture makes them graph edges).
+* Buffers: the caching allocator reasons in stream order, but the
+  products run beside a kernel launched before them.  Their outputs are
+  allocated before K1 is launched, and nothing is allocated between K1
+  and the join, so no output takes a block K1 reads or writes (the
+  upsample rows, the window, the rows of the conditioning); the same
+  holds inside a capture's pool.
+* What stays on the chain: a tier's first step of each ``_frames`` range
+  (a call's first top frame, a graph block's, the loop's remainder: its
+  ``h`` comes from the host's load or the block's static state, and no
+  product is made for a step past the range), LSTM layers (their ``hg``
+  takes ``xg`` as K2's ``add``; told apart by the state, ``(h, c)``), and
+  the plain versions and CPU tensors, which run nothing beside anything.
+  The flagship keeps 4 of a block's 160 ``hg`` on the chain, ``c4_tts``
+  2 of 80.
+
 Conditioning adds no launch: the megakernel's two-row select
 (``tier_in``, ``megagen.py:196-220``) is K2's epilogue on the tier input,
 fed the rows the caller projected once per call (``ext_proj``).  Its
@@ -53,13 +96,17 @@ sits in the graph's static buffers, filled with one copy each before a
 call's first replay, and the graph's last nodes write the next window,
 the final states and the next base position back into them, so blocks
 chain on the card.  The launches stay K1, K2, K3 and K6, with the same
-arguments as on the loop, so a graphed call's levels and states are
-bit-equal to the loop's.  The graphs live in a small cache keyed by the
+arguments and in the same order as on the loop (``_frames`` issues both,
+the ``hg`` beside K1, its event join and its programmatic edge
+included), so a graphed call's levels and states are bit-equal to the
+loop's.  The graphs live in a small cache keyed by the
 call's structure (``graph_key``); one whose weight tensors have died never
 replays.
 
 Each call of ``run`` is one span, ``megagen.run`` (attrs ``top_frames``,
-``lanes``, ``graphed``: the top frames replayed; ``utils/profiling.py``),
+``lanes``, ``graphed``: the top frames replayed, ``offchain``: the ``hg``
+products computed beside K1, ``hg``: all the GRU layers' ``hg``
+products; ``utils/profiling.py``),
 recorded while a profiler runs: the host's time launching a call's
 kernels, and none per launch.
 """
@@ -72,9 +119,9 @@ from collections import OrderedDict
 import torch
 
 from samplernn_pase_tpu_torch.ops.kernels.decode import (
-    KERNELS, LAUNCHES, PLAIN, CondRows, Ops, decode_state, kernel_lane_keys,
-    model_state, noise_mode, prepare_mlp, prepare_tier, tier_cell,
-    tier_frame, tier_gates)
+    KERNELS, LAUNCHES, PLAIN, CondRows, Ops, decode_state, gemm_bias,
+    kernel_lane_keys, model_state, noise_mode, prepare_mlp, prepare_tier,
+    tier_cell, tier_gates)
 from samplernn_pase_tpu_torch.ops.matmul import torch_dtype
 from samplernn_pase_tpu_torch.tree import tree_leaves
 from samplernn_pase_tpu_torch.utils.profiling import note, spanned
@@ -117,12 +164,58 @@ def graph_key(weights, window, temperature, q_levels: int, mode: int,
             float(temperature or 0.0), mode, rows)
 
 
+def offchain(ops: Ops, device) -> bool:
+    """Whether ``run`` computes the GRU tiers' next ``hg`` beside K1 (the
+    module docstring): with K2 itself (``ops.gemm`` is ``gemm_bias``) on
+    CUDA tensors.  The plain versions and CPU tensors run nothing beside
+    anything, so they keep every ``hg`` on the chain."""
+    return ops.gemm is gemm_bias and device.type == "cuda"
+
+
+def beside_k1(ops: Ops, products, joins=None) -> list:
+    """Launch ``products``, each ``(h, layer, out)``, right after K1 on the
+    current stream: ``out = h @ layer["w_hh"] + layer["b_hh"]`` by
+    ``ops.gemm``, each a programmatic dependent of the kernel before it
+    (K1, then the product before), so that it starts once K1's clusters
+    are up or the product before has left its SMs, and waits on no grid.
+    ``joins``: a list of CUDA events, grown as needed, for the join: one
+    recorded after K1 and after each product, all waited on at the end,
+    so that what follows waits on each of them itself (a programmatic
+    dependent is complete only once the kernel before it is: on the
+    H100 a product beside K1 ends with K1); None on the CPU.  The stream
+    is the products' device's current one, K1's.  Returns the products'
+    outputs."""
+    stream = (None if joins is None or not products
+              else torch.cuda.current_stream(products[0][0].device))
+
+    def join(i):
+        if len(joins) <= i:
+            joins.append(torch.cuda.Event())
+        joins[i].record(stream)
+
+    if stream is not None:
+        join(0)
+    got = []
+    for i, (h, lw, out) in enumerate(products):
+        got.append(ops.gemm(h, lw["w_hh"], lw["b_hh"], out=out, pdl=True))
+        if stream is not None:
+            join(i + 1)
+    if stream is not None:
+        for e in joins[:len(products) + 1]:
+            stream.wait_event(e)
+    return got
+
+
 def _frames(tiers, mw, buf, h, top, temperature, q_levels, ops, seed,
-            pos_off, lane_pos, tier_cond, lane_keys, gumbel=None):
+            pos_off, lane_pos, tier_cond, lane_keys, gumbel=None,
+            beside=False):
     """Launch the kernels of top frames ``top`` (a range): levels into
     ``buf`` [B, lookback + ...], whose first ``lookback`` columns hold the
     window before frame 0, and the per-tier decode states of the list
-    ``h`` replaced as they advance."""
+    ``h`` replaced as they advance.  With ``beside`` (``offchain``), each
+    GRU tier's next ``hg`` within ``top`` is computed beside the first K1
+    after its step.  Returns (the ``hg`` products computed beside K1, all
+    the GRU tiers' ``hg`` products)."""
     frame_sizes = [t["b_up"].shape[0] for t in tiers]
     spans = []
     acc = 1
@@ -131,29 +224,56 @@ def _frames(tiers, mw, buf, h, top, temperature, q_levels, ops, seed,
         spans.append(acc)
     lookback = spans[-1]
     f1 = frame_sizes[0]
+    end = lookback * top.stop        # past the range's last sample
+    ahead = [None] * len(tiers)      # tier k's hg for its next step
+    due = []                         # tiers whose next hg goes beside K1
+    counts = [0, 0]
+    joins = [] if beside and buf.is_cuda else None
+
+    def cell(k, frame, upper, p):
+        gru = len(h[k][0]) == 1
+        if gru:
+            counts[0] += 0 if ahead[k] is None else len(h[k])
+            counts[1] += len(h[k])
+        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
+                         tier_cond[k], p, ahead[k])
+        ahead[k] = None
+        if beside and gru and p + spans[k] < end:
+            due.append(k)
 
     def decode(k, upper, p):
         """Tier k's frame starting at generated sample p."""
         start = lookback + p
         frame = buf[:, start - spans[k]:start]
-        if k == 0:
-            noise = None if gumbel is None else gumbel[p // f1]
-            _, h[0] = tier_frame(tiers[0], mw, frame, upper, h[0],
-                                 temperature, q_levels, ops, noise, seed,
-                                 pos_off + p, buf[:, start:start + f1],
-                                 tier_cond[0], p, lane_keys, lane_pos)
+        cell(k, frame, upper, p)
+        if k > 0:
+            last = h[k][-1][0]          # the last layer's h
+            cond = ops.gemm(last, tiers[k]["w_up"], tiers[k]["b_up_flat"])
+            hdim = last.shape[1]
+            for j in range(frame_sizes[k]):
+                decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
+                       p + j * spans[k - 1])
             return
-        h[k] = tier_cell(tiers[k], frame, upper, h[k], q_levels, ops,
-                         tier_cond[k], p)
-        last = h[k][-1][0]          # the last layer's h
-        cond = ops.gemm(last, tiers[k]["w_up"], tiers[k]["b_up_flat"])
-        hdim = last.shape[1]
-        for j in range(frame_sizes[k]):
-            decode(k - 1, cond[:, j * hdim:(j + 1) * hdim],
-                   p + j * spans[k - 1])
+        # the bottom frame (decode.tier_frame): the upsample rows, then K1;
+        # the outputs of the products beside it are allocated first, so
+        # that none takes a block K1 reads or writes
+        rows = ops.gemm(h[0][-1][0], tiers[0]["w_up"])
+        products = [(x[0], lw, x[0].new_empty((x[0].shape[0],
+                                               lw["w_hh"].shape[1])))
+                    for j in due for x, lw in zip(h[j], tiers[j]["layers"])]
+        noise = None if gumbel is None else gumbel[p // f1]
+        ops.frame(frame, rows, tiers[0]["b_up"], mw, temperature, noise,
+                  seed, pos_off + p, buf[:, start:start + f1], lane_keys,
+                  lane_pos)
+        if due:
+            got = beside_k1(ops, products, joins)
+            for j in due:
+                ahead[j], got = got[:len(h[j])], got[len(h[j]):]
+            due.clear()
 
     for t in top:
         decode(len(tiers) - 1, None, t * lookback)
+    return tuple(counts)
 
 
 class _Graph:
@@ -181,6 +301,7 @@ class _Graph:
             torch.empty(b, dtype=torch.int32, device=dev), cond[2])
         self.graph = None
         self.launches = {}
+        self.counts = (0, 0)     # a replay's hg: beside K1, all
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
@@ -189,27 +310,32 @@ class _Graph:
         """What the graph records: one block's launches on the static
         buffers, then the copies that chain the next block (the window
         from the block's last ``lookback`` levels, the final states, the
-        base position advanced by the block)."""
+        base position advanced by the block).  Returns ``_frames``'s
+        counts."""
         lookback = self.buf.shape[1] // (1 + BLOCK)
         h = [decode_state(s, t["layers"]) for s, t in zip(self.states, tiers)]
         tier_cond = ([None] * len(tiers) if self.cond is None else
                      [CondRows(e, self.cond.phase, self.cond.rate)
                       for e in self.cond.ext])
-        _frames(tiers, mw, self.buf, h, range(BLOCK), temperature, q_levels,
-                KERNELS, self.seed, 0, self.pos, tier_cond, self.keys)
+        counts = _frames(tiers, mw, self.buf, h, range(BLOCK), temperature,
+                         q_levels, KERNELS, self.seed, 0, self.pos, tier_cond,
+                         self.keys,
+                         beside=offchain(KERNELS, self.buf.device))
         self.buf[:, :lookback].copy_(self.buf[:, -lookback:])
         for s, x in zip(self.states, h):
             s.copy_(model_state(x))
         self.pos.add_(BLOCK * lookback)
+        return counts
 
     def capture(self, tiers, mw, temperature, q_levels):
         """Record ``block`` on the stream the wrappers launch on (the
         capture's); ``launches`` keeps what the capture counted in
-        ``LAUNCHES`` (a replay adds it), which is left as it was."""
+        ``LAUNCHES`` (a replay adds it), which is left as it was, and
+        ``counts`` the block's ``hg`` products."""
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.block(tiers, mw, temperature, q_levels)
+            self.counts = self.block(tiers, mw, temperature, q_levels)
         self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         LAUNCHES.update(before)
 
@@ -276,8 +402,10 @@ def run(weights, window, states, temperature, n_top, q_levels,
     with ext_proj a per-tier tuple of [R, B, H] float32 rows, cond_phase
     [B] int32, or None.
 
-    Blocks of ``BLOCK`` top frames replay a CUDA graph (``graph_blocks``),
-    the remainder, ``n_top % BLOCK``, takes the launch loop.  The first
+    On K2 and CUDA tensors (``offchain``) each GRU tier's next ``hg``
+    runs beside K1 (the module docstring), on both routes.  Blocks of
+    ``BLOCK`` top frames replay a CUDA graph (``graph_blocks``), the
+    remainder, ``n_top % BLOCK``, takes the launch loop.  The first
     call of a structure (``graph_key``) runs its first block on the loop,
     so that every launcher's first use (attributes, occupancy, tensor
     maps) lies outside a capture, then captures it.  These calls keep the
@@ -329,16 +457,23 @@ def run(weights, window, states, temperature, n_top, q_levels,
     pos_off = 0 if lane_pos is not None else int(pos0)
     loop = dict(temperature=temperature, q_levels=q_levels, ops=ops,
                 seed=seed, pos_off=pos_off, lane_pos=lane_pos,
-                tier_cond=tier_cond, lane_keys=lane_keys, gumbel=gumbel)
+                tier_cond=tier_cond, lane_keys=lane_keys, gumbel=gumbel,
+                beside=offchain(ops, window.device))
 
     done = replayed = 0
+    counts = [0, 0]         # the call's hg: beside K1, all
+
+    def add(c):
+        counts[0] += c[0]
+        counts[1] += c[1]
+
     blocks = graph_blocks(n_top, window.device, ops, gumbel, cond)
     if blocks:
         mode = noise_mode(temperature, gumbel, lane_keys)
         key = graph_key(weights, window, temperature, q_levels, mode, cond)
         g = _cached(key)
         if g is None:
-            _frames(tiers, mw, buf, h, range(BLOCK), **loop)
+            add(_frames(tiers, mw, buf, h, range(BLOCK), **loop))
             g = _Graph(weights, window, states, cond, mode)
             g.capture(tiers, mw, temperature, q_levels)
             _keep(key, g)
@@ -352,14 +487,15 @@ def run(weights, window, states, temperature, n_top, q_levels,
             width = BLOCK * lookback
             for _ in range(blocks):
                 g.replay()
+                add(g.counts)
                 at = lookback + done * lookback
                 buf[:, at:at + width].copy_(g.buf[:, lookback:])
                 done += BLOCK
                 replayed += BLOCK
             h = [decode_state(s, t["layers"])
                  for s, t in zip(g.states, tiers)]
-    _frames(tiers, mw, buf, h, range(done, n_top), **loop)
-    note(graphed=replayed)
+    add(_frames(tiers, mw, buf, h, range(done, n_top), **loop))
+    note(graphed=replayed, offchain=counts[0], hg=counts[1])
     return buf[:, lookback:], tuple(model_state(x) for x in h)
 
 

@@ -100,7 +100,7 @@ int main() {
       const int err = srnn_gemm_bias(
           a, c.levels, c.k, w, 1, bias, c.with_add ? add : nullptr, c.n, out,
           c.n, c.m, c.n, c.k, 128.f, nullptr, 0, 0, 0, nullptr, 0, 1, c.split,
-          c.bn, c.groups, s);
+          c.bn, c.groups, 0, s);
       if (err) {
         std::printf("%s: launch failed (%d)\n", c.name, err);
         std::exit(1);

@@ -1020,8 +1020,9 @@ def test_frame_decode_device_seed_equals_host_seed(cuda, route):
 def _graph_model(name, dev):
     """The flagship (configs/c5_gen_b128.json), samplernn-pytorch's
     default (the flagship with n_rnn 2 and weight norm), config 4
-    (configs/c4_tts_conditioned.json), and small float32 GRU and stacked
-    LSTM models (K1's CUDA-core kernel, K6)."""
+    (configs/c4_tts_conditioned.json), config 2 (configs/c2_3tier_lstm.json),
+    and small float32 GRU and stacked LSTM models (K1's CUDA-core kernel,
+    K6)."""
     import dataclasses
     from pathlib import Path
 
@@ -1034,6 +1035,7 @@ def _graph_model(name, dev):
         "srnnpt_default": dataclasses.replace(flagship, n_rnn=2,
                                               weight_norm=True),
         "c4": load_config(root / "c4_tts_conditioned.json").model,
+        "c2": load_config(root / "c2_3tier_lstm.json").model,
         "small_f32": SampleRNNConfig(frame_sizes=(4, 2), dim=64,
                                      embed_dim=16, compute_dtype="float32"),
         "small_lstm_f32": SampleRNNConfig(
@@ -1047,10 +1049,9 @@ def _graph_model(name, dev):
     return cfg, weights
 
 
-def _graph_call(cfg, weights, dev, b, n_top, temp, ops, seed, call,
-                keyed=False, conditioned=False):
-    """megagen.run on inputs made from ``call``: the window, states,
-    positions (per lane when keyed) and conditioning rows."""
+def _graph_inputs(cfg, dev, b, n_top, call, keyed=False, conditioned=False):
+    """The inputs of a ``megagen.run`` call made from ``call``: the window,
+    states, positions (per lane when keyed), keys and conditioning rows."""
     gen = torch.Generator().manual_seed(100 + call)
     window = torch.randint(0, cfg.q_levels, (b, cfg.lookback),
                            generator=gen, dtype=torch.int32).to(dev)
@@ -1071,6 +1072,15 @@ def _graph_call(cfg, weights, dev, b, n_top, temp, ops, seed, call,
                       for _ in cfg.frame_sizes),
                 torch.randint(0, rate, (b,), generator=gen,
                               dtype=torch.int32).to(dev), rate)
+    return window, states, pos0, keys, cond
+
+
+def _graph_call(cfg, weights, dev, b, n_top, temp, ops, seed, call,
+                keyed=False, conditioned=False):
+    """megagen.run on ``_graph_inputs``; returns (its result, the launch
+    counts)."""
+    window, states, pos0, keys, cond = _graph_inputs(cfg, dev, b, n_top, call,
+                                                     keyed, conditioned)
     kdec.reset_launches()
     out = megagen.run(weights, window, states, temp, n_top, cfg.q_levels,
                       ops, seed, pos0, None, cond, keys)
@@ -1165,3 +1175,135 @@ def test_graphed_run_follows_replaced_and_modified_weights(cuda, graphs):
     weights["mlp"]["w_out"].mul_(0.5)
     both()
     assert list(megagen._GRAPHS) == [new] and graphs["replays"] == 4
+
+
+# ------------------------- the GRU's recurrent products beside K1 --
+
+def _in_series(cfg, weights, window, states, temp, n_top, seed, pos0, keys,
+               cond):
+    """``megagen.run``'s levels and final states from the tier steps in
+    series, ``decode.tier_frame`` and ``tier_cell`` on the kernels, every
+    ``hg`` on the chain; returns them with the launch counts."""
+    tiers, mw = weights["tiers"], weights["mlp"]
+    sizes = [t["b_up"].shape[0] for t in tiers]
+    spans = [int(np.prod(sizes[:k + 1])) for k in range(len(sizes))]
+    lookback, f1 = spans[-1], sizes[0]
+    b = window.shape[0]
+    buf = torch.empty((b, lookback * (1 + n_top)), dtype=torch.int32,
+                      device=window.device)
+    buf[:, :lookback] = window
+    h = [kdec.decode_state(s, t["layers"]) for s, t in zip(states, tiers)]
+    tier_cond = ([None] * len(tiers) if cond is None else
+                 [kdec.CondRows(e, cond[1], cond[2]) for e in cond[0]])
+    lane_pos = pos0 if isinstance(pos0, torch.Tensor) else None
+    pos_off = 0 if lane_pos is not None else pos0
+    if keys is not None:
+        keys = kdec.kernel_lane_keys(keys, window.device)
+
+    def decode(k, upper, p):
+        start = lookback + p
+        frame = buf[:, start - spans[k]:start]
+        if k == 0:
+            _, h[0] = kdec.tier_frame(
+                tiers[0], mw, frame, upper, h[0], temp, cfg.q_levels,
+                kdec.KERNELS, None, seed, pos_off + p,
+                buf[:, start:start + f1], tier_cond[0], p, keys, lane_pos)
+            return
+        h[k] = kdec.tier_cell(tiers[k], frame, upper, h[k], cfg.q_levels,
+                              kdec.KERNELS, tier_cond[k], p)
+        up = kdec.gemm_bias(h[k][-1][0], tiers[k]["w_up"],
+                            tiers[k]["b_up_flat"])
+        for j in range(sizes[k]):
+            decode(k - 1, up[:, j * cfg.dim:(j + 1) * cfg.dim],
+                   p + j * spans[k - 1])
+
+    kdec.reset_launches()
+    for t in range(n_top):
+        decode(len(tiers) - 1, None, t * lookback)
+    torch.cuda.synchronize()
+    return ((buf[:, lookback:], tuple(kdec.model_state(x) for x in h)),
+            dict(kdec.LAUNCHES))
+
+
+# (model, lanes, n_top, temperature, lane keys, conditioned): the stacked
+# flagship (n_rnn 2) at 1, 5 and 128 lanes over two blocks and a
+# remainder, config 4 in mode 3 (one block replays; longer conditioned
+# calls keep the loop), config 2's LSTM tiers (their hg stays on the chain)
+OFFCHAIN_CASES = {
+    "srnnpt_default_b1_greedy": ("srnnpt_default", 1, 2 * _B + 3, 0.0,
+                                 False, False),
+    "srnnpt_default_b5_seed": ("srnnpt_default", 5, 2 * _B + 3, 1.0, False,
+                               False),
+    "srnnpt_default_b128_seed": ("srnnpt_default", 128, 2 * _B + 3, 1.0,
+                                 False, False),
+    "srnnpt_default_b128_greedy": ("srnnpt_default", 128, 2 * _B, 0.0,
+                                   False, False),
+    "c4_b128_mode3_one_block": ("c4", 128, _B, 1.0, True, True),
+    "c4_b5_mode3_one_block": ("c4", 5, _B, 1.0, True, True),
+    "c4_b128_mode3_loop": ("c4", 128, 2 * _B + 3, 1.0, True, True),
+    "c2_lstm_b128_seed": ("c2", 128, 2 * _B + 1, 1.0, False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OFFCHAIN_CASES))
+def test_offchain_run_equals_tier_steps_in_series(cuda, graphs, name):
+    """``megagen.run`` with the GRU tiers' next ``hg`` beside K1, on the
+    graph route (two calls: the first captures, the second replays from
+    its start) and on the loop, against the tier steps in series: levels
+    and final states bit-equal, launch counts equal (config 2: 121 a top
+    frame)."""
+    model, b, n_top, temp, keyed, conditioned = OFFCHAIN_CASES[name]
+    cfg, weights = _graph_model(model, cuda)
+    for call, seed in enumerate((7, 2 ** 63 + 5)):
+        inputs = _graph_inputs(cfg, cuda, b, n_top, call, keyed, conditioned)
+        window, states, pos0, keys, cond = inputs
+        want, want_n = _in_series(cfg, weights, window, states, temp, n_top,
+                                  seed, pos0, keys, cond)
+        for ops in (kdec.KERNELS, LOOP):
+            got, got_n = _graph_call(cfg, weights, cuda, b, n_top, temp, ops,
+                                     seed, call, keyed, conditioned)
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+            for a, c in zip(got[1], want[1], strict=True):
+                torch.testing.assert_close(a, c, rtol=0, atol=0)
+            assert got_n == want_n
+    if model == "c2":
+        assert sum(want_n[k] for k in ("frame_decode", "gemm_bias",
+                                       "gru_gates", "lstm_gates")) \
+            == 121 * n_top
+    elif not conditioned or n_top <= _B:
+        assert graphs["replays"] > 0
+
+
+def test_pool_lanes_equal_solo_streams_flagship_width(cuda):
+    """Config 4 at its width (K1's tensor-core kernel on 8 clusters, the
+    products beside it on the SMs it leaves): a 128-lane pool with joins
+    at three chunk boundaries, 1,024-sample chunks (a graph block each);
+    each joined lane bit-equal to a solo B=1 StreamingGenerator with its
+    rows and key."""
+    from samplernn_pase_tpu_torch import generate as tgen
+    from samplernn_pase_tpu_torch.ops.kernels import noise as tnoise
+    from samplernn_pase_tpu_torch.serve import StreamPool
+    cfg, _ = _graph_model("c4", cuda)
+    params = samplernn.init_params(torch.Generator().manual_seed(0), cfg,
+                                   cuda)
+    gen = torch.Generator().manual_seed(6)
+    chunk, temp, seed = 1024, 1.0, 9
+    pool = StreamPool(params, cfg, n_lanes=128, temperature=temp, seed=seed,
+                      device=cuda)
+    joined, outs = {}, []
+    for step in range(3):
+        for _ in range(40):
+            rows = torch.randn(int(torch.randint(20, 60, (1,),
+                                                 generator=gen)),
+                               cfg.cond_dim, generator=gen).numpy()
+            joined[pool.start(cond=rows)] = (step, rows)
+        outs.append(pool.emit(chunk))
+    for lane in (0, 39, 40, 77, 119):
+        s0, rows = joined[lane]
+        sg = tgen.StreamingGenerator(
+            params, cfg, 1, temperature=temp,
+            stream_keys=tnoise.lane_key(seed, lane, 0), device=cuda)
+        sg.set_cond(rows)
+        solo = torch.cat([sg.emit(chunk)[0] for _ in range(3 - s0)])
+        got = torch.cat([o[lane] for o in outs[s0:]])
+        torch.testing.assert_close(got, solo, rtol=0, atol=0)

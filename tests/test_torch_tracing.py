@@ -193,7 +193,9 @@ def test_pool_start_and_emit_spans():
     assert _parent(prep) is emit
     (run,) = _named("megagen.run")
     assert _parent(run) is levels
-    assert run.attrs == {"top_frames": 2, "lanes": 3, "graphed": 0}
+    # a GRU hg a tier step, on the chain on the CPU: 2 x (1 + 2) of them
+    assert run.attrs == {"top_frames": 2, "lanes": 3, "graphed": 0,
+                         "offchain": 0, "hg": 6}
     (proj,) = _named("generate.project_cond")
     assert _parent(proj) is levels and proj.t1 <= run.t0
     for name in ("serve.host_copy", "serve.host_wait"):
@@ -262,7 +264,8 @@ def test_generate_levels_spans(route):
     if route:
         (run,) = runs
         assert _parent(run) is levels
-        assert run.attrs == {"top_frames": 3, "lanes": 2, "graphed": 0}
+        assert run.attrs == {"top_frames": 3, "lanes": 2, "graphed": 0,
+                             "offchain": 0, "hg": 9}
         (prep,) = _named("generate.prepare_weights")
         assert _parent(prep) is levels
     else:
